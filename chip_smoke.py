@@ -21,7 +21,19 @@ Phases, in order; any failure exits non-zero before a result is printed:
    the two scores that decided it lie within 1e-5), matched scores within
    1e-3 and the normalized micrographs within 1e-3 (f32 FFT, EM and
    convolution sum orders differ between cuFFT/cuDNN and the CPU).
-5. Print the kernels line, the card line, and last the result line.
+5. Denoise the same 4096^2 micrograph through the CLI on the card with the
+   bundled unet (``unet_L2_v0.2.1``, full width): whole image (``-s 0``)
+   and in the CLI's default patches (``-s 1024 -p 500``), each cold then
+   warm; every output has the input's shape, is finite and differs from
+   the input. Time the U-Net forward at 4096^2 with CUDA events beside its
+   bound (convolution FLOPs from ``arch_layout`` over the f32 rate, TF32
+   off) and its peak memory; for comparison only, also with
+   ``cudnn.benchmark`` on, with TF32 and in bf16, none of which the port
+   uses by default. Then hold card against CPU at ``--downsample 8 -s 0``
+   (512^2 whole) and ``--downsample 4 -s 384 -p 128`` (1024^2 in interior
+   and border patches): max abs diff within 1e-3 * std (cuDNN and the CPU
+   sum float32 in other orders).
+6. Print the kernels line, the card line, and last the result line.
 """
 
 from __future__ import annotations
@@ -256,6 +268,113 @@ def run_slice(workdir: str):
     return launches
 
 
+def unet_flops(shape, layout, levels: int = 5) -> int:
+    """FLOPs of one U-Net forward on one (H, W) image: 2 k^2 cin cout a
+    pixel for every convolution, at the pyramid level it runs (encoder i
+    at level i - 1, decoder d at level d - 1; pooling floors odd sizes).
+    Pooling, upsampling, bias and activations are left out."""
+    sizes = [tuple(shape)]
+    for _ in range(levels):
+        sizes.append((sizes[-1][0] // 2, sizes[-1][1] // 2))
+    total = 0
+    for mod, convs in layout.items():
+        h, w = sizes[int(mod[3:]) - 1]
+        total += sum(2 * k * k * cin * cout * h * w for k, cin, cout in convs.values())
+    return total
+
+
+def time_unet_forward():
+    """Device time of the unet forward on one 4096^2 image, TF32 off as the
+    port runs it, beside its FLOP bound and its peak memory; then the same
+    forward with cudnn.benchmark on, with TF32 and in bf16, for comparison."""
+    import torch
+
+    from topaz_tpu_torch.device import exact_numerics
+    from topaz_tpu_torch.models.denoise import arch_layout
+    from topaz_tpu_torch.models.denoise_factory import load_denoiser
+
+    model = load_denoiser("unet-v0.2.1", device="cuda")
+    m = model.meta
+    flops = unet_flops((SIZE, SIZE), arch_layout(m["arch"], m["nf"], m["base_width"],
+                                                 m["top_width"]))
+    bound_ms = max(flops / F32_OPS_PER_S, 2 * 4 * SIZE * SIZE / HBM_BYTES_PER_S) * 1e3
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((1, 1, SIZE, SIZE), device="cuda", generator=g)
+    with torch.inference_mode():
+        model(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"# unet forward f32 (TF32 off) {SIZE}x{SIZE}: {ms:.3f} ms a call (CUDA "
+              f"events, 5 calls); bound {bound_ms:.3f} ms ({flops / 1e12:.4f} TFLOP at "
+              f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s), {bound_ms / ms:.3f} of it; peak "
+              f"memory {peak / 2**30:.3f} GiB")
+        if not ms > 0 or peak <= x.numel() * 4:
+            fail(f"unet forward timing: {ms} ms, peak memory {peak} B")
+        try:
+            torch.backends.cudnn.benchmark = True
+            bench_ms = cuda_ms(lambda: model(x), iters=5, warmup=2)
+        finally:
+            torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32_ms = cuda_ms(lambda: model(x), iters=5, warmup=2)
+        finally:
+            exact_numerics()
+        half = model.to(torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        bf16_ms = cuda_ms(lambda: half(xb), iters=5, warmup=2)
+    print(f"# unet forward {SIZE}x{SIZE}, not the port's default: f32 with "
+          f"cudnn.benchmark {bench_ms:.3f} ms, TF32 {tf32_ms:.3f} ms, bf16 {bf16_ms:.3f} ms")
+
+
+def run_denoise(workdir: str):
+    """denoise -m unet through the CLI on the card at 4096^2, whole image
+    and in the default patches, cold then warm; then card against CPU at
+    512^2 and 1024^2. The denoise path launches no kernel of the port."""
+    import numpy as np
+    import torch
+
+    from topaz_tpu_torch.cli.main import main as cli
+    from topaz_tpu_torch.io import mrc
+    from topaz_tpu_torch.ops import disk_max as dm
+
+    raw = os.path.join(workdir, "raw.mrc")
+    x = mrc.read(raw)[0]
+
+    def denoise(device: str, tag: str, flags):
+        out = os.path.join(workdir, f"denoised_{tag}")
+        t0 = time.perf_counter()
+        cli(["denoise", "-m", "unet", "-d", device, "-o", out, raw] + flags)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        print(f"# denoise {tag} ({' '.join(flags) or 'defaults -s 1024 -p 500'}): "
+              f"{time.perf_counter() - t0:.3f} s")
+        return mrc.read(os.path.join(out, "raw.mrc"))[0]
+
+    dm.launches = 0
+    for tag, flags in (("whole", ["-s", "0"]), ("patched", [])):
+        for run in ("cold", "warm"):
+            y = denoise("0", f"card_{tag}_{run}", flags)
+            if y.shape != x.shape or not np.isfinite(y).all() or np.array_equal(y, x):
+                fail(f"denoise {tag} {run}: shape {y.shape}, finite "
+                     f"{np.isfinite(y).all()}, equal to the input {np.array_equal(y, x)}")
+    print(f"# denoise path: disk_max launches {dm.launches} (the path has no kernel "
+          f"of the port's own)")
+    time_unet_forward()
+    for factor, flags in ((8, ["-s", "0"]), (4, ["-s", "384", "-p", "128"])):
+        side = SIZE // factor
+        flags = ["--downsample", str(factor)] + flags
+        card = denoise("0", f"card_{side}", flags)
+        cpu = denoise("cpu", f"cpu_{side}", flags)
+        err = float(np.abs(card.astype(np.float64) - cpu).max())
+        print(f"# denoise {side}^2 card vs cpu: max abs diff {err}, "
+              f"{err / cpu.std():.3e} of the output's std")
+        if card.shape != (side, side) or not np.isfinite(card).all() or err > 1e-3 * cpu.std():
+            fail(f"denoise {side}^2: shape {card.shape}, card vs cpu max abs diff {err}")
+
+
 def main() -> None:
     sys.path.insert(0, REPO)
     try:
@@ -283,6 +402,7 @@ def main() -> None:
     err, times, bound_ms, bound_by = check_disk_max()
     with tempfile.TemporaryDirectory() as workdir:
         launches = run_slice(workdir)
+        run_denoise(workdir)
     if "jax" in sys.modules or "topaz_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, int, torch.device]
@@ -68,3 +69,10 @@ def parse_device_flag(value: str) -> DeviceLike:
         return int(value)
     except ValueError:
         raise ValueError(f"device must be an integer or 'cpu', got {value!r}") from None
+
+
+def as_device_tensor(x, device: DeviceLike = "cuda") -> torch.Tensor:
+    """``x`` (an array or a tensor) as a float32 tensor on ``device``."""
+    if not isinstance(x, torch.Tensor):  # a copy: arrays read from files are read-only
+        x = torch.from_numpy(np.array(x, dtype=np.float32))
+    return x.to(device=resolve_device(device), dtype=torch.float32)

@@ -1,14 +1,18 @@
-"""Fourier-crop downsampling (port of topaz_tpu/ops/fourier.py:19-68).
+"""Fourier-crop downsampling and low-pass filtering (port of
+topaz_tpu/ops/fourier.py:19-68,100-122).
 
 ``downsample`` reproduces topaz/utils/image.py:38-61 on ``torch.fft``: rfft2,
 keep the low-frequency corner blocks, rescale by the area ratio, irfft2.
-``downsample_numpy`` is its host twin on scipy's pocketfft.
+``downsample_numpy`` is its host twin on scipy's pocketfft. ``lowpass``
+zeroes the coefficients above nyquist/factor (topaz/denoise.py:174-197).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from topaz_tpu_torch.device import as_device_tensor
 
 
 def _target_shape(x_shape, factor, shape):
@@ -22,11 +26,7 @@ def downsample(x, factor: float = 1, shape=None, device="cuda") -> torch.Tensor:
 
     Output shape is ``(int(H/factor), int(W/factor))`` unless ``shape`` is
     given. ``x`` is an array or tensor; the FFTs run on ``device``."""
-    from topaz_tpu_torch.device import resolve_device
-
-    if not isinstance(x, torch.Tensor):  # a copy: arrays read from files are read-only
-        x = torch.from_numpy(np.array(x, dtype=np.float32))
-    x = x.to(device=resolve_device(device), dtype=torch.float32)
+    x = as_device_tensor(x, device)
     m, n = _target_shape(x.shape, factor, shape)
     F = torch.fft.rfft2(x)
     # keep the lowest m//2 positive-frequency rows and the top m - m//2
@@ -37,6 +37,21 @@ def downsample(x, factor: float = 1, shape=None, device="cuda") -> torch.Tensor:
     # energy rescale by the pixel-count ratio (image.py:54-57)
     F = F * ((n * m) / (x.shape[-2] * x.shape[-1]))
     return torch.fft.irfft2(F, s=(m, n))
+
+
+def lowpass(x, factor: float = 1, device="cuda") -> torch.Tensor:
+    """Low-pass filter the last two axes: zero every Fourier coefficient
+    whose frequency magnitude exceeds nyquist/factor along either axis.
+    ``x`` is an array or tensor; the FFTs run on ``device``."""
+    x = as_device_tensor(x, device)
+    if factor == 1:
+        return x
+    H, W = x.shape[-2:]
+    F = torch.fft.rfft2(x)
+    cut = 0.5 / factor
+    keep = ((torch.fft.fftfreq(H, device=x.device).abs() <= cut)[:, None]
+            & (torch.fft.rfftfreq(W, device=x.device).abs() <= cut)[None, :])
+    return torch.fft.irfft2(torch.where(keep, F, 0), s=(H, W))
 
 
 def downsample_numpy(x: np.ndarray, factor: float = 1, shape=None) -> np.ndarray:

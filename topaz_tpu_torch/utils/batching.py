@@ -1,10 +1,52 @@
-"""Prefetch-window loading (port of ``window_batches`` from
-topaz_tpu/utils/batching.py): loader threads keep the next few files read
-while the device works on the current one."""
+"""Prefetch loading (port of ``window_batches`` and ``iterate_prefetched``
+from topaz_tpu/utils/batching.py): loader threads keep the next few files
+read while the device works on the current one."""
 
 from __future__ import annotations
 
 from typing import Callable, Iterator, List, Tuple
+
+_SENTINEL = object()
+
+
+class _ProducerError:
+    """Wraps an exception raised in the producer thread so it can cross the
+    queue unambiguously (a raw exception instance could be a legal item)."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+def iterate_prefetched(gen, maxsize: int = 2) -> Iterator:
+    """Drain ``gen`` in a background daemon thread through a bounded queue.
+
+    Items are yielded in order; an exception raised in the producer
+    re-raises in the consumer instead of hanging it; the end-of-stream
+    sentinel cannot collide with a real item. ``maxsize`` bounds host-RAM
+    buffering (clamped to at least one slot). ``gen`` may be an iterable or
+    a zero-argument callable returning one (the callable form runs any
+    pre-iteration work in the producer thread)."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, maxsize))
+
+    def run():
+        try:
+            for item in (gen() if callable(gen) else gen):
+                q.put(item)
+            q.put(_SENTINEL)
+        except BaseException as e:  # noqa: BLE001 - propagated to the consumer
+            q.put(_ProducerError(e))
+
+    threading.Thread(target=run, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is _SENTINEL:
+            return
+        if isinstance(item, _ProducerError):
+            raise item.exc
+        yield item
 
 
 def window_batches(
