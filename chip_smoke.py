@@ -10,9 +10,12 @@ Phases, in order; any failure exits non-zero before a result is printed:
 3. Hold each kernel bit-equal against its plain PyTorch version on the card
    (disk_max: f32 and int32; (512, 512), (3, 300, 200), (1, 4096, 4096);
    r = 0, 3, 7, 14, 60, 96, 97, 100, either side of the largest radius
-   whose window fits in shared memory), and time kernel and plain version at the main path's
-   shape with CUDA events (device time from a CUDA graph of many calls, and
-   the eager time a call), beside the least time the card could take.
+   whose window fits in shared memory; and the pipeline's batched shapes
+   (8, 512, 512) and (8, 768, 512) at r = 3 and 14), and time kernel and
+   plain version at the main paths' shapes, (512, 512) and (8, 768, 512)
+   at r = 14, with CUDA events (device time from a CUDA graph of many
+   calls, and the eager time a call), beside the least time the card could
+   take.
 4. Drive the main path through the CLI a user calls: a 4096^2 synthetic
    micrograph through ``preprocess -s 8`` and
    ``extract -m resnet8_u32 -r 14 -t -6`` on the card (launch counts read
@@ -33,7 +36,26 @@ Phases, in order; any failure exits non-zero before a result is printed:
    (512^2 whole) and ``--downsample 4 -s 384 -p 128`` (1024^2 in interior
    and border patches): max abs diff within 1e-3 * std (cuDNN and the CPU
    sum float32 in other orders).
-6. Print the kernels line, the card line, and last the result line.
+6. The batched micrograph pipeline (``MicrographPipeline``) on 24 synthetic
+   MRCs from seed 0, 8 each of three camera geometries (4096 x 4096,
+   5760 x 4092, 3838 x 3710) with planted particles: ``resnet8_u32``,
+   ``unet`` denoise arm, ``scale=8``, ``radius=14``, ``threshold=-6``,
+   ``batch_size=8``, host prep (``host_downsample``, 2 loader threads) cold
+   and warm, then device prep. Prints micrographs a second, the programs'
+   census (2 main buckets), disk_max launches, picks a file and stage times
+   a batch. Every file comes back with picks, scores non-increasing and a
+   finite denoised image of the downsampled shape; device and host prep
+   agree under the near-tie rule. One file a geometry: the pipeline against
+   the port's per-image path on the card (downsample, ``normalize``, score,
+   ``non_maximum_suppression``) under the near-tie rule; the pipeline on
+   the card against the CPU at ``batch_size=2``, near-tie rule and denoised
+   pixels within 1e-3 x std. Pipeline picks are held with scores and gaps
+   within 1e-3 x max(1, |score|) (``PIPELINE_TOL``, below). Then the
+   batched CLI: ``normalize -s 8 --batch-size 8`` and
+   ``extract -m resnet8_u32 -r 14 -t -6 --batch-size 8`` on the 24 files,
+   three of them held against the ``--batch-size 1`` CLI (normalized pixels
+   within 1e-3, picks under the near-tie rule).
+7. Print the kernels line, the card line, and last the result line.
 """
 
 from __future__ import annotations
@@ -51,6 +73,20 @@ SEED = 0
 RADIUS = 14
 THRESHOLD = -6.0
 SIZE = 4096
+# the pipeline's batched score maps: 8 micrographs of a 512 x 512 and of a
+# 768 x 512 bucket (4096^2 and 5760 x 4092 downsampled 8x)
+BATCHED_SHAPES = [(8, 512, 512), (8, 768, 512)]
+GEOMETRIES = [(4096, 4096), (5760, 4092), (3838, 3710)]
+FILES_PER_GEOMETRY = 8
+BATCH = 8
+# picks of two pipeline runs whose GMM sums differ in order (masked bucket
+# against the cropped image, cuFFT against scipy, card against CPU): an EM
+# lane may stop one step apart (its tol of 1e-3 is below float32's
+# resolution of a logp of ~1e5), which moves mu and std by ~1e-4 relative
+# and a score s by ~1e-4 |s|; so score differences and near-tie gaps are
+# held to 1e-3 in units of max(1, |s|), as the JAX package holds its own
+# pipeline against the per-image path (rtol 1e-3, tests/test_pipeline.py)
+PIPELINE_TOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 
@@ -126,10 +162,33 @@ def disk_max_bound(shape, r: int, itemsize: int):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def time_disk_max(shape, g):
+    """Device time a call (CUDA graph) and eager time a call of kernel and
+    plain version on a random f32 map of ``shape`` at r = RADIUS, beside
+    the bound."""
+    import torch
+
+    from topaz_tpu_torch.ops import disk_max as dm
+    from topaz_tpu_torch.ops.nms import NEG, disk_max as plain
+
+    x = torch.randn(shape, device="cuda", generator=g)
+    times = {
+        "ms": graph_ms(lambda: dm.disk_max(x, RADIUS, NEG), 200),
+        "plain_ms": graph_ms(lambda: plain(x, RADIUS, NEG), 20),
+        "eager_ms": cuda_ms(lambda: dm.disk_max(x, RADIUS, NEG), 200),
+        "plain_eager_ms": cuda_ms(lambda: plain(x, RADIUS, NEG), 20),
+    }
+    times["bound_ms"], times["bound_by"] = disk_max_bound(x.shape, RADIUS, 4)
+    print(f"# disk_max f32 {shape} r={RADIUS}: device time a call (CUDA graph) "
+          f"kernel {times['ms']:.5f} ms, plain {times['plain_ms']:.5f} ms; eager a call "
+          f"kernel {times['eager_ms']:.5f} ms, plain {times['plain_eager_ms']:.5f} ms; "
+          f"bound {times['bound_ms']:.5f} ms ({times['bound_by']})")
+    return times
+
+
 def check_disk_max():
     """Kernel against plain version, bit-equal; returns the max abs error
-    and, at the main path's shape, the times of kernel and plain version
-    (device time from a CUDA graph, and eager time a call) and the bound."""
+    and the times at the single-image and the batched main-path shapes."""
     import torch
 
     from topaz_tpu_torch.ops import disk_max as dm
@@ -137,38 +196,29 @@ def check_disk_max():
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     err = 0.0
-    for shape in [(512, 512), (3, 300, 200), (1, 4096, 4096)]:
-        for r in (0, 3, 7, 14, 60, 96, 97, 100):
-            for dtype, init in ((torch.float32, NEG), (torch.int32, INT_NEG)):
-                if dtype == torch.float32:
-                    x = torch.randn(shape, device="cuda", generator=g)
-                else:
-                    x = torch.randint(-999, 999, shape, device="cuda",
-                                      generator=g, dtype=torch.int32)
-                got = dm.disk_max(x, r, init)
-                torch.cuda.synchronize()
-                want = plain(x, r, init)
-                torch.cuda.synchronize()
-                diff = (got.double() - want.double()).abs().max().item()
-                err = max(err, diff)
-                if not torch.equal(got, want):
-                    fail(f"disk_max {dtype} {shape} r={r}: kernel differs from "
-                         f"plain version (max abs diff {diff})")
-                print(f"# disk_max {str(dtype):13s} {str(shape):17s} r={r:3d}: bit-equal")
-    side = SIZE // 8
-    x = torch.randn((side, side), device="cuda", generator=g)
-    times = {
-        "ms": graph_ms(lambda: dm.disk_max(x, RADIUS, NEG), 200),
-        "plain_ms": graph_ms(lambda: plain(x, RADIUS, NEG), 20),
-        "eager_ms": cuda_ms(lambda: dm.disk_max(x, RADIUS, NEG), 200),
-        "plain_eager_ms": cuda_ms(lambda: plain(x, RADIUS, NEG), 20),
-    }
-    bound_ms, bound_by = disk_max_bound(x.shape, RADIUS, 4)
-    print(f"# disk_max f32 {side}x{side} r={RADIUS}: device time a call (CUDA graph) "
-          f"kernel {times['ms']:.5f} ms, plain {times['plain_ms']:.5f} ms; eager a call "
-          f"kernel {times['eager_ms']:.5f} ms, plain {times['plain_eager_ms']:.5f} ms; "
-          f"bound {bound_ms:.5f} ms ({bound_by})")
-    return err, times, bound_ms, bound_by
+    cases = [(shape, r) for shape in [(512, 512), (3, 300, 200), (1, 4096, 4096)]
+             for r in (0, 3, 7, 14, 60, 96, 97, 100)]
+    cases += [(shape, r) for shape in BATCHED_SHAPES for r in (3, 14)]
+    for shape, r in cases:
+        for dtype, init in ((torch.float32, NEG), (torch.int32, INT_NEG)):
+            if dtype == torch.float32:
+                x = torch.randn(shape, device="cuda", generator=g)
+            else:
+                x = torch.randint(-999, 999, shape, device="cuda",
+                                  generator=g, dtype=torch.int32)
+            got = dm.disk_max(x, r, init)
+            torch.cuda.synchronize()
+            want = plain(x, r, init)
+            torch.cuda.synchronize()
+            diff = (got.double() - want.double()).abs().max().item()
+            err = max(err, diff)
+            if not torch.equal(got, want):
+                fail(f"disk_max {dtype} {shape} r={r}: kernel differs from "
+                     f"plain version (max abs diff {diff})")
+            print(f"# disk_max {str(dtype):13s} {str(shape):17s} r={r:3d}: bit-equal")
+    single = time_disk_max((SIZE // 8, SIZE // 8), g)
+    batched = time_disk_max(BATCHED_SHAPES[-1], g)
+    return err, single, batched
 
 
 def read_picks(path):
@@ -181,22 +231,26 @@ def read_picks(path):
     return picks
 
 
-def compare_picks(card, cpu):
+def compare_picks(card, cpu, tie=1e-5, labels=("card", "cpu"), relative=False):
     """Differing picks are allowed only where the two deciding scores lie
-    within 1e-5: the pick of one run against a pick of the other run inside
-    the NMS radius, or against the threshold."""
-    for mine, other, label in ((card, cpu, "card"), (cpu, card, "cpu")):
+    within ``tie``: the pick of one run against a pick of the other run
+    inside the NMS radius, or against the threshold. Returns the largest
+    score difference of the common picks. ``relative`` measures each
+    difference in units of max(1, |score|)."""
+    def diff(a, b):
+        return abs(a - b) / (max(1.0, abs(a)) if relative else 1.0)
+
+    for mine, other, label in ((card, cpu, labels[0]), (cpu, card, labels[1])):
         for p in sorted(set(mine) - set(other)):
             near = [q for q in other
                     if (q[0] - p[0]) ** 2 + (q[1] - p[1]) ** 2 <= RADIUS ** 2]
-            gap = min([abs(mine[p] - THRESHOLD)]
-                      + [abs(mine[p] - other[q]) for q in near])
+            gap = min([diff(mine[p], THRESHOLD)] + [diff(mine[p], other[q]) for q in near])
             print(f"# pick {p} only in the {label} run: score {mine[p]}, "
                   f"closest deciding score gap {gap}")
-            if gap > 1e-5:
+            if gap > tie:
                 fail(f"pick {p} of the {label} run is not a near-tie (gap {gap})")
     common = set(card) & set(cpu)
-    return max((abs(card[p] - cpu[p]) for p in common), default=0.0)
+    return max((diff(card[p], cpu[p]) for p in common), default=0.0)
 
 
 def run_slice(workdir: str):
@@ -375,6 +429,219 @@ def run_denoise(workdir: str):
             fail(f"denoise {side}^2: shape {card.shape}, card vs cpu max abs diff {err}")
 
 
+def write_micrographs(workdir: str, rng, geometries, per_geometry: int):
+    """Gaussian-noise MRCs with 40 planted particles each (a local 3 sigma
+    dip, radius ~24 px raw), geometries taken in turn."""
+    import numpy as np
+
+    from topaz_tpu_torch.io import mrc
+
+    w = 96
+    yy, xx = np.mgrid[-w:w, -w:w].astype(np.float32)
+    blob = 3.0 * np.exp(-(yy ** 2 + xx ** 2) / (2 * 24.0 ** 2))
+    paths = []
+    for i in range(per_geometry * len(geometries)):
+        h, wd = geometries[i % len(geometries)]
+        x = rng.standard_normal((h, wd), dtype=np.float32)
+        my, mx = (min(300, max(w, d // 4)) for d in (h, wd))
+        for cy, cx in zip(rng.integers(my, h - my, size=40), rng.integers(mx, wd - mx, size=40)):
+            x[cy - w:cy + w, cx - w:cx + w] -= blob
+        paths.append(os.path.join(workdir, f"mic{i:02d}.mrc"))
+        mrc.write(paths[-1], x)
+    return paths
+
+
+def run_pipeline_pass(pipe, paths, tag: str, batch_size: int = BATCH):
+    """One pass of ``pipe.process`` over ``paths``; returns {path: (scores,
+    coords, denoised)} and prints the wall time and micrographs a second."""
+    import torch
+
+    from topaz_tpu_torch.utils import profiling
+
+    profiling.reset()
+    t0 = time.perf_counter()
+    out = {}
+    for path, scores, coords, den in pipe.process(paths, batch_size=batch_size):
+        out[path] = (scores, coords, den)
+    if pipe.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"# pipeline {tag}: {len(out)} micrographs in {dt:.3f} s, "
+          f"{len(out) / dt:.3f} micrographs/s; programs {pipe.num_programs}")
+    for name, t in profiling.timings().items():
+        print(f"#   stage {name}: {t['count']} batches, mean {t['mean_ms']:.3f} ms, "
+              f"total {t['total_s']:.3f} s")
+    return out
+
+
+def picks_of(scores, coords):
+    return {(int(x), int(y)): float(s) for s, (x, y) in zip(scores, coords)}
+
+
+def run_pipeline(workdir: str):
+    """The batched pipeline over 24 micrographs of three geometries on the
+    card: host prep cold and warm, then device prep; returns the disk_max
+    launches of the cold run and the files."""
+    import numpy as np
+
+    from topaz_tpu_torch.ops import disk_max as dm
+    from topaz_tpu_torch.pipeline import MicrographPipeline, _image_shape
+
+    t0 = time.perf_counter()
+    paths = write_micrographs(workdir, np.random.default_rng(SEED), GEOMETRIES,
+                              FILES_PER_GEOMETRY)
+    print(f"# pipeline: wrote {len(paths)} MRCs {GEOMETRIES} in "
+          f"{time.perf_counter() - t0:.3f} s")
+    kw = dict(model="resnet8_u32", denoise_model="unet", scale=8, radius=RADIUS,
+              threshold=THRESHOLD, num_workers=2)
+    os.environ["TOPAZ_TIMINGS"] = "1"  # stage times a batch include the device's
+    try:
+        host = MicrographPipeline(host_downsample=True, **kw)
+        dm.launches = 0
+        cold = run_pipeline_pass(host, paths, "host prep, cold")
+        launches = dm.launches
+        warm = run_pipeline_pass(host, paths, "host prep, warm")
+        device = MicrographPipeline(host_downsample=False, **kw)
+        run_pipeline_pass(device, paths, "device prep, cold")
+        dev = run_pipeline_pass(device, paths, "device prep, warm")
+    finally:
+        del os.environ["TOPAZ_TIMINGS"]
+    n_batches = sum(-(-FILES_PER_GEOMETRY * n // BATCH) for n in (2, 1))
+    print(f"# pipeline: disk_max launches in the cold run {launches} "
+          f"({n_batches} batches of {BATCH})")
+    if launches < 3 * n_batches or launches % 3:
+        fail(f"pipeline: disk_max launched {launches} times for {n_batches} batches")
+    if host.num_programs != {"main": 2, "prep": 0} or device.num_programs["main"] != 2:
+        fail(f"pipeline programs: host {host.num_programs}, device {device.num_programs}")
+
+    counts, prep_err = [], 0.0
+    for path in paths:
+        if path not in cold or path not in warm or path not in dev:
+            fail(f"pipeline: {path} did not come back")
+        h, w = _image_shape(path)
+        scores, coords, den = warm[path]
+        counts.append(len(scores))
+        if not len(scores) or np.any(np.diff(scores) > 0):
+            fail(f"pipeline: {path}: {len(scores)} picks, scores non-increasing "
+                 f"{bool(np.all(np.diff(scores) <= 0))}")
+        if den.shape != (int(h / 8), int(w / 8)) or not np.isfinite(den).all():
+            fail(f"pipeline: {path}: denoised shape {den.shape}, finite "
+                 f"{np.isfinite(den).all()}")
+        if not np.array_equal(coords, cold[path][1]):
+            fail(f"pipeline: {path}: warm picks differ from cold picks")
+        prep_err = max(prep_err, compare_picks(picks_of(*dev[path][:2]),
+                                               picks_of(scores, coords), tie=PIPELINE_TOL, relative=True,
+                                               labels=("device prep", "host prep")))
+    print(f"# pipeline: picks a file {counts}; device vs host prep matched scores "
+          f"max diff {prep_err} x max(1, |score|)")
+    if prep_err > PIPELINE_TOL:
+        fail(f"pipeline device vs host prep: scores differ by {prep_err}")
+    return launches, paths, dev
+
+
+def hold_pipeline(paths, dev):
+    """One file a geometry: the device-prep pipeline's picks against the
+    port's per-image path on the card; then the pipeline on the card
+    against the CPU at batch 2."""
+    import numpy as np
+    import torch
+
+    from topaz_tpu_torch.io.image import load_image
+    from topaz_tpu_torch.models.factory import load_picker
+    from topaz_tpu_torch.ops.fourier import downsample
+    from topaz_tpu_torch.ops.gmm import normalize
+    from topaz_tpu_torch.ops.nms import non_maximum_suppression
+    from topaz_tpu_torch.pipeline import MicrographPipeline
+
+    some = paths[:len(GEOMETRIES)]
+    picker = load_picker("resnet8_u32", device="cuda")
+    err = 0.0
+    for path in some:
+        small = downsample(load_image(path), 8, device="cuda").cpu().numpy()
+        x, _ = normalize(small, sample=1, device="cuda")
+        with torch.inference_mode():
+            score = picker(torch.from_numpy(x).cuda()[None])[0]
+        s, c = non_maximum_suppression(score, RADIUS, threshold=THRESHOLD, device="cuda")
+        err = max(err, compare_picks(picks_of(*dev[path][:2]), picks_of(s, c),
+                                     tie=PIPELINE_TOL, relative=True, labels=("pipeline", "per-image")))
+    print(f"# pipeline vs per-image path on the card ({len(some)} files): matched "
+          f"scores max diff {err} x max(1, |score|)")
+    if err > PIPELINE_TOL:
+        fail(f"pipeline vs per-image: scores differ by {err}")
+
+    kw = dict(model="resnet8_u32", denoise_model="unet", scale=8, radius=RADIUS,
+              threshold=THRESHOLD, host_downsample=True, num_workers=2)
+    card = run_pipeline_pass(MicrographPipeline(**kw), some, "card, batch 2", batch_size=2)
+    cpu = run_pipeline_pass(MicrographPipeline(device="cpu", **kw), some, "cpu, batch 2",
+                            batch_size=2)
+    err, den_err = 0.0, 0.0
+    for path in some:
+        err = max(err, compare_picks(picks_of(*card[path][:2]), picks_of(*cpu[path][:2]),
+                                     tie=PIPELINE_TOL, relative=True))
+        a, b = card[path][2], cpu[path][2]
+        den_err = max(den_err, float(np.abs(a.astype(np.float64) - b).max() / b.std()))
+    print(f"# pipeline card vs cpu: matched scores max diff {err} x max(1, |score|), "
+          f"denoised max abs diff {den_err:.3e} x std")
+    if err > 1e-3 or den_err > 1e-3:
+        fail(f"pipeline card vs cpu: scores {err}, denoised {den_err} x std")
+
+
+def run_batched_cli(workdir: str, paths):
+    """``normalize -s 8 --batch-size 8`` and ``extract --batch-size 8`` on
+    the card, three files held against the ``--batch-size 1`` CLI."""
+    import numpy as np
+
+    from topaz_tpu_torch.cli.main import main as cli
+    from topaz_tpu_torch.io import mrc
+
+    def run(tag, batch, files, sample):
+        proc = os.path.join(workdir, f"proc_{tag}")
+        picks = os.path.join(workdir, f"picks_{tag}.txt")
+        t0 = time.perf_counter()
+        cli(["normalize", "-s", "8", "--batch-size", str(batch), "-o", proc, "-d", "0"]
+            + sample + files)
+        t1 = time.perf_counter()
+        cli(["extract", "-m", "resnet8_u32", "-r", str(RADIUS), "-t", str(THRESHOLD),
+             "--batch-size", str(batch), "-o", picks, "-d", "0"]
+            + [os.path.join(proc, os.path.basename(p)) for p in files])
+        t2 = time.perf_counter()
+        print(f"# CLI {tag} ({len(files)} files): normalize {t1 - t0:.3f} s, "
+              f"extract {t2 - t1:.3f} s")
+        return proc, read_table(picks)
+
+    proc8, table8 = run("batch8", BATCH, paths, [])
+    some = paths[:len(GEOMETRIES)]
+    proc1, table1 = run("batch1", 1, some, ["--sample", "1"])
+    if sorted(table8) != sorted(os.path.splitext(os.path.basename(p))[0] for p in paths):
+        fail(f"batched extract: {len(table8)} of {len(paths)} micrographs have picks")
+    img_err, err = 0.0, 0.0
+    for path in some:
+        name = os.path.basename(path)
+        a = mrc.read(os.path.join(proc8, name))[0]
+        b = mrc.read(os.path.join(proc1, name))[0]
+        if a.shape != b.shape:
+            fail(f"batched normalize {name}: shape {a.shape}, per-image {b.shape}")
+        img_err = max(img_err, float(np.abs(a.astype(np.float64) - b).max()))
+        stem = os.path.splitext(name)[0]
+        err = max(err, compare_picks(table8[stem], table1[stem], tie=PIPELINE_TOL, relative=True,
+                                     labels=("batch 8", "batch 1")))
+    print(f"# CLI batch 8 vs batch 1 ({len(some)} files): normalized max abs diff "
+          f"{img_err}, matched pick scores max diff {err} x max(1, |score|)")
+    if img_err > 1e-3 or err > 1e-3:
+        fail(f"batched CLI: normalized {img_err}, scores {err}")
+
+
+def read_table(path):
+    """{image_name: {(x, y): score}} of an extract table."""
+    picks = {}
+    with open(path) as f:
+        next(f)
+        for line in f:
+            name, x, y, s = line.rstrip("\n").split("\t")
+            picks.setdefault(name, {})[(int(x), int(y))] = float(s)
+    return picks
+
+
 def main() -> None:
     sys.path.insert(0, REPO)
     try:
@@ -399,21 +666,32 @@ def main() -> None:
     build_libraries(["disk_max"])
     print(f"# kernels built in {time.perf_counter() - t:.2f} s")
 
-    err, times, bound_ms, bound_by = check_disk_max()
+    err, single, batched = check_disk_max()
     with tempfile.TemporaryDirectory() as workdir:
-        launches = run_slice(workdir)
+        extract_launches = run_slice(workdir)
         run_denoise(workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        pipeline_launches, paths, dev = run_pipeline(workdir)
+        hold_pipeline(paths, dev)
+        run_batched_cli(workdir, paths)
     if "jax" in sys.modules or "topaz_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
 
+    # the batched pipeline is the main path of this slice: its launches and
+    # the time at its larger bucket's shape lead; extract's single-image
+    # shape keeps its numbers under "single"
     kernels = [{
         "name": "disk_max", "route": "cuda",
         "source": "topaz_tpu_torch/csrc/disk_max.cu",
         "replaces": "topaz_tpu/ops/nms_pallas.py:35",
-        "launches": launches, "max_abs_err": err,
-        "ms": times["ms"], "kernel_ms": times["ms"], "plain_ms": times["plain_ms"],
-        "eager_ms": times["eager_ms"], "plain_eager_ms": times["plain_eager_ms"],
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "launches": pipeline_launches,
+        "launches_by_path": {"pipeline": pipeline_launches, "extract": extract_launches,
+                             "denoise": 0},
+        "max_abs_err": err, "shape": list(BATCHED_SHAPES[-1]), "r": RADIUS,
+        "ms": batched["ms"], "plain_ms": batched["plain_ms"],
+        "eager_ms": batched["eager_ms"], "plain_eager_ms": batched["plain_eager_ms"],
+        "bound_ms": batched["bound_ms"], "bound_by": batched["bound_by"], "library_ms": None,
+        "single": {"shape": [SIZE // 8, SIZE // 8], **single},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

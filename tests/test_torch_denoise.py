@@ -36,6 +36,7 @@ from topaz_tpu_torch.models import denoise_factory as tfactory
 from topaz_tpu_torch.ops import filters as tfilters
 from topaz_tpu_torch.ops import fourier as tfourier
 from topaz_tpu_torch.utils.batching import iterate_prefetched
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["unet", "unet3", "unet-small", "unet2", "fcnet", "affine"]
 

@@ -18,6 +18,7 @@ import pytest
 from topaz_tpu_torch.cli.main import main
 from topaz_tpu_torch.io import mrc
 from topaz_tpu_torch.utils.synthetic import make_ctf_micrograph
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

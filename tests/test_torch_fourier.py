@@ -10,6 +10,7 @@ import torch
 
 from topaz_tpu.ops import fourier as jfourier
 from topaz_tpu_torch.ops import fourier as tfourier
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = [((512, 512), 8), ((257, 300), 3), ((100, 64), 2)]
 

@@ -16,6 +16,7 @@ import torch
 
 from topaz_tpu.ops import gmm as jgmm
 from topaz_tpu_torch.ops import gmm as tgmm
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5
 LANE_RTOL = 1e-3

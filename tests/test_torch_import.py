@@ -73,7 +73,8 @@ def _entry_points(tmp_path):
     from topaz_tpu_torch.ops.fourier import downsample
     from topaz_tpu_torch.ops.gmm import normalize
     from topaz_tpu_torch.ops.nms import non_maximum_suppression
-    from topaz_tpu_torch.preprocess import normalize_images
+    from topaz_tpu_torch.pipeline import MicrographPipeline
+    from topaz_tpu_torch.preprocess import normalize_images, normalize_images_batched
 
     x = np.random.default_rng(0).normal(size=(32, 32)).astype(np.float32)
     path = str(tmp_path / "a.mrc")
@@ -88,13 +89,19 @@ def _entry_points(tmp_path):
         "normalize_images": lambda: normalize_images([path], str(tmp_path / "o")),
         "extract_particles": lambda: extract_particles(
             [path], "resnet8_u32", -6, 3, output=str(tmp_path / "p.txt")),
+        "extract_particles_batched": lambda: extract_particles(
+            [path], "resnet8_u32", -6, 3, batch_size=2, output=str(tmp_path / "p.txt")),
+        "MicrographPipeline": lambda: MicrographPipeline(scale=1),
+        "normalize_images_batched": lambda: normalize_images_batched(
+            [path], str(tmp_path / "o"), batch_size=2),
     }
 
 
 @pytest.mark.parametrize("entry", [
     "resolve_device", "resolve_device_index", "downsample", "normalize",
     "non_maximum_suppression", "load_picker", "normalize_images",
-    "extract_particles"])
+    "extract_particles", "extract_particles_batched", "MicrographPipeline",
+    "normalize_images_batched"])
 def test_entry_points_raise_without_cuda(tmp_path, monkeypatch, entry):
     from topaz_tpu_torch.device import DeviceUnavailableError
 

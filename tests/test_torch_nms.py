@@ -16,6 +16,7 @@ from topaz_tpu.ops import nms as jnms
 from topaz_tpu.ops.nms_pallas import disk_max_pallas
 from topaz_tpu_torch.ops import disk_max as kernel
 from topaz_tpu_torch.ops import nms as tnms
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the lax reference, jitted once per (r, init): eager it dispatches ~3r ops
 jax_disk_max = jax.jit(jnms.disk_max, static_argnums=(1, 2))

@@ -15,6 +15,7 @@ from topaz_tpu.models import factory as jfactory
 from topaz_tpu.models.picker import apply_picker
 from topaz_tpu_torch.models import factory as tfactory
 from topaz_tpu_torch.models.picker import make_picker_spec as t_make_picker_spec
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

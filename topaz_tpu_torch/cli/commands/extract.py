@@ -48,5 +48,5 @@ def main(args):
         batch_size=args.batch_size, only_validate=args.only_validate,
         output=args.output, per_micrograph=args.per_micrograph,
         up_scale=args.up_scale, down_scale=args.down_scale, dims=args.dims,
-        verbose=args.verbose, device=args.device,
+        verbose=args.verbose, device=args.device, skip_errors=args.skip_errors,
     )

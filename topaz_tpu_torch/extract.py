@@ -3,8 +3,10 @@ of topaz_tpu/extract.py:38-83,164-306, the reference's topaz/extract.py).
 
 Each micrograph is scored whole on the device and its score map stays
 there for the NMS rounds, whose disk max-filter is the CUDA kernel; only
-the accepted peaks come back to the host. Output is the single table
-(image_name, x_coord, y_coord, score) on stdout or in one file.
+the accepted peaks come back to the host. ``batch_size > 1`` scores and
+suppresses shape-bucketed batches through pipeline.MicrographPipeline.
+Output is the single table (image_name, x_coord, y_coord, score) on stdout
+or in one file.
 """
 
 from __future__ import annotations
@@ -76,16 +78,17 @@ def extract_particles(
     dims: int = 2,
     verbose: bool = False,
     device="cuda",
+    skip_errors: bool = False,
 ) -> None:
     """Score, run NMS and write the coordinate table
-    (topaz/extract.py:266-367)."""
+    (topaz/extract.py:266-367). With ``batch_size > 1`` and a model, the
+    micrographs go through the batched pipeline (topaz_tpu/extract.py:
+    211-223); ``skip_errors`` lets it go on past unreadable files."""
     if targets is not None or only_validate:
         raise _not_ported("--targets/--only-validate (radius search and "
                           "validation against labeled targets)")
     if per_micrograph:
         raise _not_ported("--per-micrograph output")
-    if batch_size > 1:
-        raise _not_ported("batched scoring (--batch-size > 1)")
     if patch_size:
         raise _not_ported("patch scoring (--patch-size)")
     if dims != 2:
@@ -100,15 +103,25 @@ def extract_particles(
     paths = list(paths) if paths else list(stream_inputs(sys.stdin))
     scale = up_scale / down_scale
 
+    if batch_size > 1 and model not in (None, "none"):
+        from topaz_tpu_torch.pipeline import MicrographPipeline
+
+        pipe = MicrographPipeline(model=model, scale=1, radius=radius,
+                                  threshold=threshold, normalize=False,
+                                  skip_errors=skip_errors, device=device)
+        picks = pipe.process(paths, batch_size=batch_size)
+    else:
+        picks = ((path, *non_maximum_suppression(score, radius, threshold=threshold,
+                                                 device=device))
+                 for path, score in score_images(model, paths, device=device))
+
     if output is not None and os.path.isdir(output):
         output = os.path.join(output, "extracted_particles.txt")
     f = sys.stdout if output is None else open(output, "w")
     try:
         print("image_name\tx_coord\ty_coord\tscore", file=f)
-        for path, score in score_images(model, paths, device=device):
+        for path, s, coords in picks:
             name = os.path.splitext(os.path.basename(path))[0]
-            s, coords = non_maximum_suppression(score, radius, threshold=threshold,
-                                                device=device)
             if verbose:
                 report(f"Extracted {len(s)} particles from {name}")
             if scale != 1:

@@ -8,6 +8,11 @@ before every EM step and a lane that is done, or out of iterations, keeps
 its state, which is exactly what the JAX package's vmapped ``while_loop``
 does. The loop ends when no lane runs, checked on the host once a step.
 
+The fits also take a batch of images, (B, N), with 0/1 validity weights
+``w`` for the padding of a shape bucket: the (B, 11, N) lanes stand for the
+JAX pipeline's ``vmap`` of the masked fit over images (topaz_tpu/
+pipeline.py:203-209), and one host check a step serves the whole batch.
+
 Numerical contract: same update equations, same init (quantile split,
 shared variance), same MAP pi update, same termination; float32 reduction
 order differs, so mu/std agree to ~1e-5 relative.
@@ -76,25 +81,36 @@ def gmm_fit(
     n=None,
 ):
     """Fit shared-variance 2-component GMMs with a Beta prior on pi, one
-    lane per entry of ``pi`` and ``split`` (1D, same length).
+    lane per entry of ``pi`` and ``split``.
 
-    Same update equations and termination rule as topaz/stats.py:122-214.
-    ``w`` (weights the size of ``x``) with ``n`` = their sum restricts the
-    fit to a weighted subset (histogram EM passes counts). Returns per-lane
-    (logp, mu0, var0, mu1, var1, pi), each of shape (L,).
+    ``x`` is one image's pixels, (N,), or a batch of images, (B, N); ``pi``
+    and ``split`` are (L,), or (B, L) for a batch. The batch stands for the
+    JAX package's ``vmap`` over images: every (image, lane) pair stops on
+    its own. Same update equations and termination rule as
+    topaz/stats.py:122-214. ``w`` (weights the shape of ``x``) with ``n`` =
+    their sum per image restricts the fit to a weighted subset: 0/1
+    validity of padded images, or histogram counts. Returns per-lane
+    (logp, mu0, var0, mu1, var1, pi), each (L,) or (B, L).
     """
-    x = x.reshape(-1)
+    batched = x.dim() == 2
+    xb = x if batched else x.reshape(1, -1)
+    B = xb.shape[0]
     if w is None:
-        w = torch.ones_like(x)
-        n = x.numel()
+        wb = torch.ones_like(xb)
+        n = xb.shape[-1]
     else:
-        w = w.reshape(-1).to(x.dtype)
+        wb = w.reshape(xb.shape).to(x.dtype)
         if n is None:
-            n = torch.sum(w)
-    mu = torch.sum(x * w) / n
-    xb, wb = x[None], w[None]
-    pi = torch.as_tensor(pi, dtype=x.dtype, device=x.device).reshape(-1, 1)
-    split = torch.as_tensor(split, dtype=x.dtype, device=x.device).reshape(-1, 1)
+            n = torch.sum(wb, dim=-1)
+    if isinstance(n, torch.Tensor):
+        n = n.reshape(B, 1, 1)
+    mu = torch.sum(xb * wb, dim=-1, keepdim=True)[:, None] / n
+    xb, wb = xb[:, None], wb[:, None]
+    pi = torch.as_tensor(pi, dtype=x.dtype, device=x.device)
+    split = torch.as_tensor(split, dtype=x.dtype, device=x.device)
+    lanes = pi.shape[-1]
+    pi = pi.reshape(-1, lanes).expand(B, lanes)[..., None]
+    split = split.reshape(-1, lanes).expand(B, lanes)[..., None]
 
     def weighted_mean(p):
         s = torch.sum(p, dim=-1, keepdim=True)
@@ -114,8 +130,8 @@ def gmm_fit(
     p0 = (xb <= split).to(x.dtype) * wb
     s = stats(p0, wb - p0, pi)
     s["logp_cur"] = s["logp"]
-    it = torch.zeros_like(pi, dtype=torch.int32)
-    done = torch.zeros_like(pi, dtype=torch.bool)
+    it = torch.zeros(pi.shape, dtype=torch.int32, device=x.device)
+    done = torch.zeros(pi.shape, dtype=torch.bool, device=x.device)
 
     while True:
         running = (~done) & (it < num_iters)
@@ -132,7 +148,8 @@ def gmm_fit(
         s = {k: torch.where(running, new[k], v) for k, v in s.items()}
         done = torch.where(running, step_done, done)
         it = it + running.to(torch.int32)
-    return tuple(s[k].reshape(-1) for k in ("logp", "mu0", "var", "mu1", "var", "pi"))
+    out = tuple(s[k][..., 0] for k in ("logp", "mu0", "var", "mu1", "var", "pi"))
+    return out if batched else tuple(v[0] for v in out)
 
 
 def _guard_degenerate(i, mus, stds, pis_out, logps, mean_all, rng):
@@ -142,92 +159,152 @@ def _guard_degenerate(i, mus, stds, pis_out, logps, mean_all, rng):
     logps are NaN; such frames normalize to zeros (mu=mean, std=1) with
     logp=-inf as the host-visible degeneracy signal. Non-constant images
     whose best lane still has a non-finite or zero std get the same
-    fallback."""
-    best_mu, best_std = mus[i], stds[i]
+    fallback. ``i`` is the (B, 1) index of each image's best lane."""
+    best_mu = mus.gather(-1, i)[:, 0]
+    best_std = stds.gather(-1, i)[:, 0]
     degen = (rng <= 0) | ~torch.isfinite(best_std) | (best_std <= 0)
     one = torch.ones_like(best_std)
     mu_sel = torch.where(degen, mean_all, best_mu)
     std_sel = torch.where(degen, one, best_std)
-    pi_sel = torch.where(degen, one, pis_out[i])
-    logp_sel = torch.where(degen, torch.full_like(one, -math.inf), logps[i])
+    pi_sel = torch.where(degen, one, pis_out.gather(-1, i)[:, 0])
+    logp_sel = torch.where(degen, torch.full_like(one, -math.inf), logps.gather(-1, i)[:, 0])
     return mu_sel, std_sel, pi_sel, logp_sel, mus, stds, pis_out, logps
 
 
-def _select(logp_g, mu_g, var_g, pi_g, logp1c, mu1c, var1c, mean_all, rng):
-    logps = torch.cat([logp_g, logp1c.reshape(1)])
-    mus = torch.cat([mu_g, mu1c.reshape(1)])
-    stds = torch.sqrt(torch.cat([var_g, var1c.reshape(1)]))
-    pis_out = torch.cat([pi_g, torch.ones(1, dtype=pi_g.dtype, device=pi_g.device)])
-    i = torch.argmax(logps)
-    return _guard_degenerate(i, mus, stds, pis_out, logps, mean_all, rng)
+def _select(batched, logp_g, mu_g, var_g, pi_g, logp1c, mu1c, var1c, mean_all, rng):
+    """Append the single-component lane to the 11 EM lanes of each image,
+    take the max-logp lane, guard dead frames; drop the batch axis of a
+    single image."""
+    logps = torch.cat([logp_g, logp1c[:, None]], dim=-1)
+    mus = torch.cat([mu_g, mu1c[:, None]], dim=-1)
+    stds = torch.sqrt(torch.cat([var_g, var1c[:, None]], dim=-1))
+    pis_out = torch.cat([pi_g, torch.ones_like(pi_g[:, :1])], dim=-1)
+    i = torch.argmax(logps, dim=-1, keepdim=True)
+    out = _guard_degenerate(i, mus, stds, pis_out, logps, mean_all, rng)
+    return out if batched else tuple(v[0] for v in out)
+
+
+def _as_batch(x: torch.Tensor, w):
+    """(x, w) as float32 (B, N) batches; a 1D ``x`` is one image."""
+    batched = x.dim() == 2
+    xb = x.to(torch.float32).reshape(x.shape[0] if batched else 1, -1)
+    wb = None if w is None else w.reshape(xb.shape).to(torch.float32)
+    return batched, xb, wb
 
 
 def norm_fit(x: torch.Tensor, alpha: float = 900, beta: float = 1,
-             scale: float = 1.0, num_iters: int = 100):
+             scale: float = 1.0, num_iters: int = 100, w: torch.Tensor = None):
     """Try all 12 pi inits, pick the max-logp fit (topaz/stats.py:86-119).
 
-    Returns (mu, std, pi, logp, mus, stds, pis, logps) where mu/std are the
-    *second* (high-intensity) component's parameters, as in the reference.
+    ``x`` is one image's pixels (N,) or a batch of images (B, N). Returns
+    (mu, std, pi, logp, mus, stds, pis, logps), where mu/std are the
+    *second* (high-intensity) component's parameters, as in the reference;
+    a batch adds its leading axis to each.
+
+    With ``w`` (0/1 validity weights, the shape of ``x``) each image is fit
+    on its valid pixels only: the quantile initialization, the EM
+    sufficient statistics and the single-component lane all ignore the
+    padding of a shape bucket (topaz_tpu/ops/gmm.py:188-250).
     """
-    x = x.reshape(-1).to(torch.float32)
-    N = x.numel()
+    batched, xb, wb = _as_batch(x, w)
+    N = xb.shape[-1]
     pis = torch.tensor(DEFAULT_PIS, dtype=torch.float32, device=x.device)
-    # linear-interpolation quantiles, in jnp.quantile's arithmetic
-    xs = torch.sort(x).values
-    q = (1 - pis) * (float(N) - 1)
-    low, high = torch.floor(q), torch.ceil(q)
-    high_w = q - low
-    low_w = 1 - high_w
-    low = torch.clamp(low, 0, N - 1).long()
-    high = torch.clamp(high, 0, N - 1).long()
-    splits = xs[low] * low_w + xs[high] * high_w
+    if wb is None:
+        # linear-interpolation quantiles, in jnp.quantile's arithmetic
+        xs = torch.sort(xb, dim=-1).values
+        q = (1 - pis) * (float(N) - 1)
+        low, high = torch.floor(q), torch.ceil(q)
+        high_w = q - low
+        low_w = 1 - high_w
+        low = torch.clamp(low, 0, N - 1).long()
+        high = torch.clamp(high, 0, N - 1).long()
+        splits = xs[:, low] * low_w + xs[:, high] * high_w
+        n = N
+    else:
+        # masked quantile, numpy's linear interpolation over each image's
+        # own n valid pixels (float32, as jnp): padding sorts to +inf past
+        # them
+        n = torch.sum(wb, dim=-1, keepdim=True)
+        xs = torch.sort(torch.where(wb > 0, xb, math.inf), dim=-1).values
+        idx = (1 - pis) * (n - 1)
+        lo = torch.clamp(torch.floor(idx).long(), 0, N - 1)
+        hi = torch.clamp(torch.ceil(idx).long(), 0, N - 1)
+        frac = idx - torch.floor(idx)
+        splits = xs.gather(-1, lo) * (1 - frac) + xs.gather(-1, hi) * frac
 
     logp_g, _mu0, _var0, mu_g, var_g, pi_g = gmm_fit(
-        x, pis[:-1], splits[:-1], alpha=alpha, beta=beta, scale=scale,
-        num_iters=num_iters)
+        xb, pis[:-1], splits[:, :-1], alpha=alpha, beta=beta, scale=scale,
+        num_iters=num_iters, w=wb, n=None if wb is None else n)
 
     # lane 11: single-component model (stats.py:104-107); torch's x.var() is
     # unbiased, as the reference
-    mu1c = torch.mean(x)
-    var1c = torch.mean((x - mu1c) ** 2) * (N / (N - 1))
-    sum_z1c = torch.sum(-((x - mu1c) ** 2) / 2 / var1c - 0.5 * torch.log(2 * math.pi * var1c))
+    if wb is None:
+        mu1c = torch.mean(xb, dim=-1)
+        var1c = torch.mean((xb - mu1c[:, None]) ** 2, dim=-1) * (N / (N - 1))
+        sum_z1c = torch.sum(-((xb - mu1c[:, None]) ** 2) / 2 / var1c[:, None]
+                            - 0.5 * torch.log(2 * math.pi * var1c[:, None]), dim=-1)
+        mean_all = torch.mean(xb, dim=-1)
+        rng = torch.amax(xb, dim=-1) - torch.amin(xb, dim=-1)
+    else:
+        n = n[:, 0]
+        mu1c = torch.sum(xb * wb, dim=-1) / n
+        var1c = torch.sum(wb * (xb - mu1c[:, None]) ** 2, dim=-1) / (n - 1)
+        sum_z1c = torch.sum(wb * (-((xb - mu1c[:, None]) ** 2) / 2 / var1c[:, None]
+                                  - 0.5 * torch.log(2 * math.pi * var1c[:, None])), dim=-1)
+        mean_all = torch.sum(xb * wb, dim=-1) / n
+        rng = (torch.amax(torch.where(wb > 0, xb, -math.inf), dim=-1)
+               - torch.amin(torch.where(wb > 0, xb, math.inf), dim=-1))
     logp1c = scale * sum_z1c + _beta_pdf_at_one(alpha, beta).to(x.device)
-    return _select(logp_g, mu_g, var_g, pi_g, logp1c, mu1c, var1c,
-                   torch.mean(x), torch.max(x) - torch.min(x))
+    return _select(batched, logp_g, mu_g, var_g, pi_g, logp1c, mu1c, var1c, mean_all, rng)
 
 
 def norm_fit_hist(x: torch.Tensor, bins: int = 65536, alpha: float = 900,
-                  beta: float = 1, num_iters: int = 100):
+                  beta: float = 1, num_iters: int = 100, w: torch.Tensor = None):
     """Histogram-accelerated :func:`norm_fit`: bin all pixels once, then
     run the same weighted EM over the bin centers with the counts as
     weights. The only error is value quantization to the bin width. Same
-    8-tuple return as norm_fit."""
-    x = x.reshape(-1).to(torch.float32)
-    n = torch.tensor(float(x.numel()), dtype=torch.float32, device=x.device)
-    lo, hi = torch.min(x), torch.max(x)
+    shapes and return as norm_fit.
+
+    With ``w`` (0/1 validity weights) each image's range and counts cover
+    its valid pixels only. A batch bins all its images in one ``bincount``,
+    image b's bins offset by ``b * bins``."""
+    batched, xb, wb = _as_batch(x, w)
+    B, N = xb.shape
+    if wb is None:
+        n = torch.full((B, 1), float(N), dtype=torch.float32, device=x.device)
+        lo = torch.amin(xb, dim=-1, keepdim=True)
+        hi = torch.amax(xb, dim=-1, keepdim=True)
+    else:
+        n = torch.sum(wb, dim=-1, keepdim=True)
+        lo = torch.amin(torch.where(wb > 0, xb, math.inf), dim=-1, keepdim=True)
+        hi = torch.amax(torch.where(wb > 0, xb, -math.inf), dim=-1, keepdim=True)
     width = torch.clamp(hi - lo, min=1e-30)
-    idx = torch.clamp((((x - lo) / width) * bins).to(torch.int32), 0, bins - 1)
-    counts = torch.bincount(idx, minlength=bins).to(torch.float32)
+    idx = torch.clamp((((xb - lo) / width) * bins).to(torch.int32), 0, bins - 1)
+    idx = idx + torch.arange(B, device=x.device)[:, None] * bins
+    counts = torch.bincount(idx.reshape(-1), minlength=B * bins,
+                            weights=None if wb is None else wb.reshape(-1))
+    counts = counts.to(torch.float32).reshape(B, bins)
     centers = lo + (torch.arange(bins, dtype=torch.float32, device=x.device) + 0.5) * (width / bins)
 
     pis = torch.tensor(DEFAULT_PIS, dtype=torch.float32, device=x.device)
     # quantile init from the histogram CDF
-    cdf = torch.cumsum(counts, 0)
+    cdf = torch.cumsum(counts, -1)
     split_idx = torch.clamp(torch.searchsorted(cdf, (1 - pis) * n), 0, bins - 1)
-    splits = centers[split_idx]
+    splits = centers.gather(-1, split_idx)
 
     logp_g, _mu0, _var0, mu_g, var_g, pi_g = gmm_fit(
-        centers, pis[:-1], splits[:-1], alpha=alpha, beta=beta,
+        centers, pis[:-1], splits[:, :-1], alpha=alpha, beta=beta,
         num_iters=num_iters, w=counts, n=n)
 
-    mu1c = torch.sum(centers * counts) / n
-    var1c = torch.sum(counts * (centers - mu1c) ** 2) / (n - 1)
+    mu1c = torch.sum(centers * counts, dim=-1, keepdim=True) / n
+    var1c = torch.sum(counts * (centers - mu1c) ** 2, dim=-1, keepdim=True) / (n - 1)
     logp1c = torch.sum(
         counts * (-((centers - mu1c) ** 2) / 2 / var1c
-                  - 0.5 * torch.log(2 * math.pi * var1c))
+                  - 0.5 * torch.log(2 * math.pi * var1c)), dim=-1
     ) + _beta_pdf_at_one(alpha, beta).to(x.device)
-    return _select(logp_g, mu_g, var_g, pi_g, logp1c, mu1c, var1c,
-                   torch.sum(centers * counts) / n, hi - lo)
+    mean_all = torch.sum(centers * counts, dim=-1) / n[:, 0]
+    return _select(batched, logp_g, mu_g, var_g, pi_g, logp1c, mu1c[:, 0], var1c[:, 0],
+                   mean_all, (hi - lo)[:, 0])
 
 
 def _warn_degenerate():
@@ -274,7 +351,7 @@ def normalize(
     if bins > 0:
         mu, std, pi, logp, mus, stds, pis, logps = (
             v.cpu().numpy() for v in norm_fit_hist(
-                torch.as_tensor(x, device=device), bins=int(bins), alpha=alpha,
+                torch.as_tensor(x.ravel(), device=device), bins=int(bins), alpha=alpha,
                 beta=beta, num_iters=num_iters))
         mu, std = float(mu), float(std)
         if np.isneginf(logp):
@@ -295,7 +372,7 @@ def normalize(
 
     mu, std, pi, logp, mus, stds, pis, logps = (
         v.cpu().numpy() for v in norm_fit(
-            torch.as_tensor(x_sample, device=device), alpha=alpha, beta=beta,
+            torch.as_tensor(x_sample.ravel(), device=device), alpha=alpha, beta=beta,
             scale=scale, num_iters=num_iters))
     mu, std = float(mu), float(std)
     if np.isneginf(logp):

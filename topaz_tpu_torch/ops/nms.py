@@ -99,6 +99,52 @@ def nms_mask_2d(score: torch.Tensor, r: int, threshold: float) -> torch.Tensor:
                           lambda x, init: disk_max_kernel(x, r, init))
 
 
+def _topk_table(scores: torch.Tensor, mask: torch.Tensor, k: int):
+    """Fixed-size table of the accepted peaks of (B, H, W) score maps:
+    (vals (B, k), coords (B, k, 2) as (x, y), counts (B,)). Entries past
+    ``count`` hold -inf / (-1, -1).
+
+    Order is ``lax.top_k``'s: descending in the floats' total order (+0
+    above -0), equal scores lower index first. ``torch.topk`` promises no
+    tie order on the card and ``torch.sort`` holds -0 equal to +0, so the
+    table comes from a stable descending sort of integer keys that order as
+    the floats' total order does."""
+    B, H, W = scores.shape
+    flat = torch.where(mask, scores, torch.tensor(NEG, dtype=torch.float32,
+                                                  device=scores.device)).reshape(B, -1)
+    bits = flat.view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    idx = torch.sort(key, dim=-1, descending=True, stable=True).indices[:, :k]
+    vals = flat.gather(-1, idx)
+    valid = vals > NEG
+    minus_one = torch.full_like(idx, -1)
+    xs = torch.where(valid, idx % W, minus_one)
+    ys = torch.where(valid, idx // W, minus_one)
+    coords = torch.stack([xs, ys], dim=-1).to(torch.int32)
+    return vals, coords, mask.sum(dim=(-2, -1), dtype=torch.int32)
+
+
+def nms_topk_2d(score: torch.Tensor, r: int, threshold: float, k: int):
+    """Greedy NMS of one (H, W) score map, kept on the device:
+    (vals (k,), coords (k, 2) as (x, y), count) in ``lax.top_k`` order
+    (topaz_tpu/ops/nms.py:227-244). Entries past ``count`` hold -inf and
+    (-1, -1). ``k`` must not exceed H * W."""
+    mask = nms_mask_2d(score.contiguous(), r, threshold)
+    vals, coords, counts = _topk_table(score[None], mask[None], k)
+    return vals[0], coords[0], counts[0]
+
+
+def nms_topk_batched(scores: torch.Tensor, r: int, threshold: float, k: int):
+    """Greedy NMS of a (B, H, W) batch of score maps, kept on the device:
+    (vals (B, k), coords (B, k, 2) as (x, y), counts (B,))
+    (topaz_tpu/ops/nms.py:247-265). The rounds run on the whole batch, so
+    on the card each round is three launches of the disk-max kernel at
+    (B, H, W); a map with no pixel above ``threshold`` (a dead frame, all
+    -inf) takes no part in any round."""
+    mask = nms_mask_2d(scores.contiguous(), r, threshold)
+    return _topk_table(scores, mask, k)
+
+
 def _mask_to_sorted(score: np.ndarray, mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Host-side: enumerate accepted peaks sorted by descending score with
     descending-index tie-break (reference emission order, algorithms.py:36)."""

@@ -1,12 +1,66 @@
-"""Prefetch loading (port of ``window_batches`` and ``iterate_prefetched``
-from topaz_tpu/utils/batching.py): loader threads keep the next few files
-read while the device works on the current one."""
+"""Shape buckets and prefetch loading (port of topaz_tpu/utils/batching.py).
+
+The batched pipelines (pipeline.MicrographPipeline and
+preprocess.normalize_images_batched) zero-pad each micrograph up to a
+rounded shape bucket, mask device statistics to the valid region, keep the
+device fed with loader threads, and fetch their results with one
+synchronisation. This module holds those pieces so that they cannot drift
+between the two.
+"""
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, List, Tuple
+from typing import Callable, Iterator, List, Sequence, Tuple
+
+import numpy as np
+import torch
 
 _SENTINEL = object()
+
+
+def fetch_async(*tensors):
+    """Copy several device tensors to the host with one synchronisation.
+
+    Every device-to-host copy is started non-blocking into a pinned host
+    buffer on the stream that produced the tensor; then each stream used is
+    synchronised once, and only then are the buffers read. Returns numpy
+    arrays; ``None``, numpy arrays and CPU tensors pass through."""
+    bufs, streams = [], {}
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            stream = torch.cuda.current_stream(t.device)
+            buf.copy_(t, non_blocking=True)
+            streams[stream.cuda_stream] = stream
+            bufs.append(buf)
+        else:
+            bufs.append(t)
+    for stream in streams.values():
+        stream.synchronize()
+    return tuple(None if b is None else b.numpy() if isinstance(b, torch.Tensor)
+                 else np.asarray(b) for b in bufs)
+
+
+def round_bucket(shape: Sequence[int], step: int) -> Tuple[int, ...]:
+    """Round every extent of ``shape`` up to the next multiple of ``step``."""
+    return tuple(-(-int(s) // step) * step for s in shape)
+
+
+def valid_mask(bucket: Sequence[int], valid: torch.Tensor) -> torch.Tensor:
+    """Boolean mask of the valid (unpadded) region of a bucket batch.
+
+    ``bucket`` is the padded shape; ``valid`` is a ``(B, ndim)`` integer
+    tensor of the true extents. Returns a ``(B, *bucket)`` bool tensor on
+    ``valid``'s device, True where the pixel belongs to the real image."""
+    B = valid.shape[0]
+    ndim = len(bucket)
+    mask = None
+    for d, extent in enumerate(bucket):
+        idx = torch.arange(extent, device=valid.device).reshape(
+            (1,) + (1,) * d + (extent,) + (1,) * (ndim - d - 1))
+        m = idx < valid[:, d].reshape((B,) + (1,) * ndim)
+        mask = m if mask is None else (mask & m)
+    return mask
 
 
 class _ProducerError:
@@ -89,3 +143,50 @@ def window_batches(
             while len(loaded) < batch_size:
                 loaded.append(loaded[-1])
             yield chunk, n_real, loaded
+
+
+class _LoadFailure:
+    def __init__(self, exc: Exception):
+        self.exc = exc
+
+
+def load_batches(
+    items: List,
+    load_one: Callable,
+    batch_size: int,
+    window: int,
+    num_workers: int = 2,
+    skip_errors: bool = False,
+    label: Callable = str,
+) -> Iterator[Tuple[List, List]]:
+    """``window_batches`` for the batched pipelines: yields
+    ``(chunk, loaded)``, ``loaded`` padded to ``batch_size`` by repeating
+    its last entry. With ``skip_errors`` an item whose load raises is left
+    out with a warning naming ``label(item)``, and a batch left with nothing
+    is skipped (the reference fails on the first bad file, and so does this
+    without ``skip_errors``)."""
+    import warnings
+
+    def load(item):
+        if not skip_errors:
+            return load_one(item)
+        try:
+            return load_one(item)
+        except Exception as e:  # noqa: BLE001 - skipped with a warning
+            return _LoadFailure(e)
+
+    for chunk, _, loaded in window_batches(items, load, batch_size, window,
+                                           num_workers=num_workers):
+        kept = []
+        for item, value in zip(chunk, loaded):
+            if isinstance(value, _LoadFailure):
+                warnings.warn(f"{label(item)}: {value.exc} — skipped (--skip-errors)")
+            else:
+                kept.append((item, value))
+        if not kept:
+            continue
+        if len(kept) < len(chunk):
+            chunk = [item for item, _ in kept]
+            loaded = [value for _, value in kept]
+            loaded += [loaded[-1]] * (batch_size - len(loaded))
+        yield chunk, loaded
