@@ -55,7 +55,22 @@ Phases, in order; any failure exits non-zero before a result is printed:
    ``extract -m resnet8_u32 -r 14 -t -6 --batch-size 8`` on the 24 files,
    three of them held against the ``--batch-size 1`` CLI (normalized pixels
    within 1e-3, picks under the near-tie rule).
-7. Print the kernels line, the card line, and last the result line.
+7. Picker training: 16 synthetic 4096^2 micrographs (``make_ctf_micrograph``,
+   ~60 particles each), normalized by ``normalize -s 8 --batch-size 8``; 12
+   for training, 40 particles of each labeled, and 4 for testing, all
+   labeled. ``train`` with the CLI defaults (resnet8, units 32, pretrained
+   ``resnet8_u32``, GE-binomial, batch 256) at ``-n 60 -r 3 --num-epochs 2
+   --epoch-size 100`` with the test split: epoch wall times, warm steps and
+   crops a second, every row finite, test AUPRC above the pretrained
+   picker's, the checkpoint loads; training launches no disk_max. Then
+   ``extract -m <prefix>_epoch2.npz -r 14 -t -6`` on the test micrographs:
+   picks on each, disk_max launches counted. A resumed warm epoch under
+   torch.profiler gives the device's idle share; the sampler alone a batch,
+   one train step alone (CUDA events) against its FLOP bound;
+   ``--no-pretrained --bn on`` for 20 steps (running statistics move); and
+   the default command at ``--epoch-size 5 --minibatch-size 64`` on the
+   card and the CPU, five train rows within ``TRAIN_TOL``.
+8. Print the kernels line, the card line, and last the result line.
 """
 
 from __future__ import annotations
@@ -87,6 +102,14 @@ BATCH = 8
 # held to 1e-3 in units of max(1, |s|), as the JAX package holds its own
 # pipeline against the per-image path (rtol 1e-3, tests/test_pipeline.py)
 PIPELINE_TOL = 1e-3
+# the training phase: 12 + 4 micrographs of ~60 particles, 40 of each
+# training micrograph's labeled (positive-unlabeled)
+TRAIN_FILES, TEST_FILES, TRAIN_PARTICLES, TRAIN_LABELED = 12, 4, 60, 40
+# card against CPU, five train rows of the same crops: each column's
+# difference in units of max(|cpu value|, TRAIN_TOL_FLOOR) (cuDNN and the
+# CPU sum float32 in other orders, and five Adam steps carry that forward;
+# the largest measured on an H100 was 2.0e-5, the loss column's: 10x that)
+TRAIN_TOL, TRAIN_TOL_FLOOR = 2e-4, 1e-2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 
@@ -642,6 +665,348 @@ def read_table(path):
     return picks
 
 
+def write_training_set(workdir: str, n_train: int = TRAIN_FILES, n_test: int = TEST_FILES,
+                       size: int = SIZE, n_particles: int = TRAIN_PARTICLES,
+                       n_labeled: int = TRAIN_LABELED, device: str = "0"):
+    """Synthetic ``size``^2 micrographs (``make_ctf_micrograph``, seed SEED +
+    100 + i, ``n_particles`` each), normalized by ``normalize -s 8
+    --batch-size 8``, with image lists and coordinate files of the centers
+    / 8. The training files label the first ``n_labeled`` particles of each
+    micrograph (positive-unlabeled, so that ``-n n_particles`` gives pi above
+    the observed fraction and GE-binomial stays GE-binomial); the test
+    files label all."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from topaz_tpu_torch.cli.main import main as cli
+    from topaz_tpu_torch.io import mrc
+    from topaz_tpu_torch.utils.synthetic import make_ctf_micrograph
+
+    raw = os.path.join(workdir, "train_raw")
+    os.makedirs(raw)
+
+    def make(i):
+        x, centers = make_ctf_micrograph(np.random.default_rng(SEED + 100 + i), size=size,
+                                         n_particles=n_particles)
+        path = os.path.join(raw, f"mic{i:02d}.mrc")
+        mrc.write(path, x)
+        return path, centers
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as ex:
+        made = list(ex.map(make, range(n_train + n_test)))
+    t1 = time.perf_counter()
+    proc = os.path.join(workdir, "train_proc")
+    cli(["normalize", "-s", "8", "--batch-size", "8", "-o", proc, "-d", device]
+        + [p for p, _ in made])
+    print(f"# training set: {len(made)} micrographs {size}^2 written in {t1 - t0:.3f} s, "
+          f"normalized (-s 8 --batch-size 8) in {time.perf_counter() - t1:.3f} s; "
+          f"particles a micrograph {[len(c) for _, c in made]}")
+    files = {}
+    for split, part, labeled in (("train", made[:n_train], n_labeled),
+                                 ("test", made[n_train:], n_particles)):
+        images = os.path.join(workdir, f"{split}_images.txt")
+        targets = os.path.join(workdir, f"{split}_targets.txt")
+        with open(images, "w") as fi, open(targets, "w") as ft:
+            print("image_name\tpath", file=fi)
+            print("image_name\tx_coord\ty_coord", file=ft)
+            for path, centers in part:
+                name = os.path.splitext(os.path.basename(path))[0]
+                print(f"{name}\t{os.path.join(proc, name + '.mrc')}", file=fi)
+                for y, x in centers[:labeled]:
+                    print(f"{name}\t{round(x / 8)}\t{round(y / 8)}", file=ft)
+        files[split] = (images, targets)
+    return files
+
+
+def read_log(path):
+    """(header, rows) of a training log; '-' cells are None."""
+    with open(path) as f:
+        lines = f.read().strip().split("\n")
+    rows = [[None if v == "-" else (float(v) if i > 2 else v)
+             for i, v in enumerate(line.split("\t"))] for line in lines[1:]]
+    return lines[0].split("\t"), rows
+
+
+def check_log(path, n_train_rows: int, tag: str):
+    """Every number of a training log finite, and the train row count."""
+    header, rows = read_log(path)
+    train = [r for r in rows if r[2] == "train"]
+    bad = [r for r in rows for v in r[3:] if v is not None and not math.isfinite(v)]
+    if len(train) != n_train_rows or bad:
+        fail(f"{tag}: {len(train)} train rows (expected {n_train_rows}), not finite: {bad[:3]}")
+    return header, rows
+
+
+def train_step_flops(spec, batch: int) -> int:
+    """FLOPs of one train step on ``batch`` crops of the receptive field:
+    2 k^2 cin cout a pixel for every convolution of the strided forward at
+    the size it runs (VALID; resnet skip projections, the 1x1 head), and
+    twice that for the backward, less the first convolution's input
+    gradient. Pooling, batchnorm, activations and the update are left out."""
+    from topaz_tpu_torch.models.layers import ConvSpec, PoolSpec, ResidSpec
+
+    n, total, first = spec.width, 0, None
+    for s in spec.features:
+        if isinstance(s, ConvSpec):
+            out = (n - (s.kernel - 1) * s.dilation - 1) // s.stride + 1
+            f = 2 * s.kernel ** 2 * s.nin * s.nout * out ** 2
+            first = f if first is None else first
+        elif isinstance(s, ResidSpec):
+            h = n - 2
+            out = (h - 2 * s.dilation - 1) // s.stride + 1
+            f = 2 * 9 * s.nin * s.nhidden * h ** 2 + 2 * 9 * s.nhidden * s.nout * out ** 2
+            if s.nin != s.nout:
+                f += 2 * s.nin * s.nout * out ** 2
+            first = f if first is None else first
+        elif isinstance(s, PoolSpec):
+            out, f = (n + 2 * s.padding - s.kernel) // s.stride + 1, 0
+        else:
+            continue
+        total, n = total + f, out
+    total += 2 * spec.latent_dim * n ** 2
+    return batch * (3 * total - first)
+
+
+def device_busy(prof, span: str):
+    """(busy, wall, {name: time}) in us within the one profiler span
+    ``span`` of a torch.profiler trace: busy is the union of the device's
+    kernel, copy and memset intervals (the device-side copies of the
+    ``record_function`` spans and the synchronization records, which span
+    whole windows and waits, are left out)."""
+    import torch
+
+    windows = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.name == span and e.device_type == torch.autograd.DeviceType.CPU]
+    if len(windows) != 1:
+        fail(f"profiler: {len(windows)} spans named {span}")
+    w0, w1 = windows[0]
+    spans = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+             and getattr(e, "is_user_annotation", False)} | {span}
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name not in spans and "sync" not in e.name.lower()
+              and e.time_range.end > w0 and e.time_range.start < w1]
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    busy, end = 0.0, w0
+    for a, b in sorted((max(e.time_range.start, w0), min(e.time_range.end, w1))
+                       for e in events):
+        a = max(a, end)
+        if b > a:
+            busy, end = busy + b - a, b
+    return busy, w1 - w0, by_name
+
+
+def run_training(workdir: str, files, epoch_size: int = 100, device: str = "0"):
+    """``train`` with the CLI defaults (resnet8, units 32, pretrained
+    resnet8_u32, GE-binomial, batch 256) for 2 epochs on the card, test
+    split, checkpoints and log; then ``extract`` with the epoch-2
+    checkpoint on the test micrographs. Returns the disk_max launches of
+    the training and of the extract run, the run's argument list and its
+    checkpoint prefix."""
+    from topaz_tpu_torch.cli.main import main as cli
+    from topaz_tpu_torch.io.coordinates import read_coordinates
+    from topaz_tpu_torch.models.factory import load_picker
+    from topaz_tpu_torch.ops import disk_max as dm
+    from topaz_tpu_torch.training import evaluate_model
+    from topaz_tpu_torch.utils import profiling
+
+    dev = "cpu" if device == "cpu" else "cuda"
+    (train_images, train_targets), (test_images, test_targets) = files["train"], files["test"]
+    with open(test_images) as f:
+        test_paths = [line.split("\t")[1].strip() for line in list(f)[1:]]
+    auprc0 = evaluate_model(load_picker("resnet8_u32", device=dev), test_paths,
+                            read_coordinates(test_targets), radius=3)[4]
+    print(f"# train: test AUPRC of the pretrained resnet8_u32 before training {auprc0}")
+
+    prefix = os.path.join(workdir, "train", "model")
+    log = os.path.join(workdir, "train", "log.tsv")
+    argv = ["train", "--train-images", train_images, "--train-targets", train_targets,
+            "--test-images", test_images, "--test-targets", test_targets,
+            "-n", str(TRAIN_PARTICLES), "-r", "3", "--num-epochs", "2",
+            "--epoch-size", str(epoch_size), "-d", device]
+    profiling.reset()
+    dm.launches = 0
+    t0 = time.perf_counter()
+    cli(argv + ["--save-prefix", prefix, "-o", log])
+    wall = time.perf_counter() - t0
+    train_launches = dm.launches
+    epochs = profiling.samples("train_epoch")
+    evals = profiling.samples("train_evaluate")
+    print(f"# train: 2 epochs of {epoch_size} steps, batch 256, in {wall:.3f} s; epoch wall "
+          f"{', '.join(f'{t:.3f}' for t in epochs)} s, test evaluation "
+          f"{', '.join(f'{t:.3f}' for t in evals)} s; warm epoch {epoch_size / epochs[-1]:.3f} "
+          f"steps/s, {256 * epoch_size / epochs[-1]:.1f} crops/s; disk_max launches "
+          f"{train_launches}")
+    header, rows = check_log(log, 2 * epoch_size, "train")
+    tests = [r for r in rows if r[2] == "test"]
+    auprc = tests[-1][header.index("auprc")]
+    print(f"# train: method columns {header[3:]}; test rows {tests}")
+    if "ge_penalty" not in header:
+        fail(f"train: GE-binomial fell back to PN (header {header})")
+    if not auprc > auprc0:
+        fail(f"train: test AUPRC after epoch 2 {auprc} does not exceed {auprc0} before training")
+    if train_launches:
+        fail(f"train: the training path launched disk_max {train_launches} times")
+
+    ckpt = prefix + "_epoch2.npz"
+    model = load_picker(ckpt, device=dev)
+    if model.spec.width != 71 or dict(model.spec.config)["units"] != 32:
+        fail(f"train: checkpoint {ckpt} holds {model.spec}")
+
+    picks = os.path.join(workdir, "train", "picks.txt")
+    dm.launches = 0
+    t0 = time.perf_counter()
+    cli(["extract", "-m", ckpt, "-r", str(RADIUS), "-t", str(THRESHOLD), "-o", picks,
+         "-d", device] + test_paths)
+    extract_launches = dm.launches
+    table = read_table(picks)
+    counts = [len(table.get(os.path.splitext(os.path.basename(p))[0], {})) for p in test_paths]
+    print(f"# train_extract: extract -m {os.path.basename(ckpt)} -r {RADIUS} -t {THRESHOLD} on "
+          f"{len(test_paths)} test micrographs in {time.perf_counter() - t0:.3f} s: picks a "
+          f"micrograph {counts}, disk_max launches {extract_launches}")
+    if min(counts) < 1 or (device != "cpu" and extract_launches < 3 * len(test_paths)):
+        fail(f"train_extract: picks {counts}, disk_max launches {extract_launches}")
+    return train_launches, extract_launches, argv, prefix, epochs[-1]
+
+
+def time_training(workdir: str, files, argv, prefix: str, epoch_s: float, epoch_size: int = 100):
+    """On the card: a warm third epoch (``--resume``) under torch.profiler
+    for the device's idle share; the sampler alone a batch; one train step
+    alone (CUDA events, the host's queueing time, the device's busy time)
+    beside the step's FLOP bound, and, for comparison only, with
+    cudnn.benchmark on."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from topaz_tpu_torch.cli.main import main as cli
+    from topaz_tpu_torch.io.coordinates import read_coordinates
+    from topaz_tpu_torch.models.factory import load_picker
+    from topaz_tpu_torch.train.data import CropSampler
+    from topaz_tpu_torch.train.methods import make_loss_fn
+    from topaz_tpu_torch.train.trainer import init_train_state, make_train_step
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cli(argv[:argv.index("--num-epochs")] + argv[argv.index("--num-epochs") + 2:]
+            + ["--num-epochs", "3", "--resume", prefix + "_train_state.npz",
+               "--save-prefix", prefix + "_resumed", "-o", prefix + "_resumed.tsv"])
+    busy_us, wall_us, by_name = device_busy(prof, "train_epoch")
+    idle = 1 - busy_us / wall_us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    check_log(prefix + "_resumed.tsv", epoch_size, "train, resumed epoch 3")
+
+    (train_images, train_targets) = files["train"]
+    with open(train_images) as f:
+        paths = [line.split("\t")[1].strip() for line in list(f)[1:]]
+    sampler = CropSampler(paths, read_coordinates(train_targets), 71, radius=3, seed=1)
+    for _ in range(3):
+        sampler.sample_batch(256, 16)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        sampler.sample_batch(256, 256)
+    gather_ms = (time.perf_counter() - t0) / 20 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(20):
+        crops, labels = sampler.sample_batch(256, int(sampler.rng.binomial(256, 0.0625)))
+    sample_ms = (time.perf_counter() - t0) / 20 * 1e3
+
+    model = load_picker("resnet8_u32", device="cuda")
+    state = init_train_state(model, 0.0155)
+    step = make_train_step(make_loss_fn("GE-binomial", 0.0155)[0])
+    x, y = torch.from_numpy(crops).cuda(), torch.from_numpy(labels).cuda()
+    step_ms = cuda_ms(lambda: step(state, x, y), iters=20, warmup=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step(state, x, y)
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("train_steps"):
+            for _ in range(20):
+                step(state, x, y)
+            torch.cuda.synchronize()
+    step_busy_us = device_busy(prof, "train_steps")[0] / 20
+    try:  # for comparison only: the port leaves cudnn.benchmark off
+        torch.backends.cudnn.benchmark = True
+        bench_ms = cuda_ms(lambda: step(state, x, y), iters=20, warmup=5)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    flops = train_step_flops(model.spec, 256)
+    bound_ms = flops / F32_OPS_PER_S * 1e3
+    est_idle = 1 - epoch_size * step_busy_us / 1e3 / (epoch_s * 1e3)
+    print(f"# train: sampler alone {sample_ms:.3f} ms a batch of 256 (host, native gather; "
+          f"{gather_ms:.3f} ms with no negatives to draw); train step alone {step_ms:.3f} ms a "
+          f"step (CUDA events around 20 eager steps), host {host_ms:.3f} ms a step to queue, "
+          f"device busy {step_busy_us / 1e3:.3f} ms a step (torch.profiler, 20 steps); "
+          f"bound {bound_ms:.3f} ms ({flops / 1e9:.3f} GFLOP at {F32_OPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s), {bound_ms / (step_busy_us / 1e3):.3f} of the device time; for "
+          f"comparison only, with cudnn.benchmark on {bench_ms:.3f} ms a step")
+    print(f"# train: warm epoch under torch.profiler (resumed epoch 3, whose host also "
+          f"records the profile): wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms ({busy_us / 1e3 / epoch_size:.3f} ms a step), idle share "
+          f"{idle:.4f}; 1 - steps x step alone / epoch wall of epoch 2: {est_idle:.4f}; "
+          f"device time by name (ms): {[(n[:60], round(t / 1e3, 3)) for n, t in top]}")
+    if not (0 <= idle <= 1 and step_ms > 0 and np.isfinite(sample_ms)):
+        fail(f"train timings: idle {idle}, step {step_ms} ms, sampler {sample_ms} ms")
+
+
+def train_card_vs_cpu(workdir: str, files):
+    """The default command at ``--num-epochs 1 --epoch-size 5
+    --minibatch-size 64`` (no test split) on the card and on the CPU: the
+    samplers draw the same crops, so the five train rows agree column by
+    column within TRAIN_TOL."""
+    from topaz_tpu_torch.cli.main import main as cli
+
+    (train_images, train_targets) = files["train"]
+    logs = {}
+    for device in ("0", "cpu"):
+        logs[device] = os.path.join(workdir, f"train_{device}.tsv")
+        t0 = time.perf_counter()
+        cli(["train", "--train-images", train_images, "--train-targets", train_targets,
+             "-n", str(TRAIN_PARTICLES), "-r", "3", "--num-epochs", "1", "--epoch-size", "5",
+             "--minibatch-size", "64", "-d", device, "-o", logs[device]])
+        print(f"# train card vs cpu: -d {device} took {time.perf_counter() - t0:.3f} s")
+    header, card = check_log(logs["0"], 5, "train on the card")
+    _, cpu = check_log(logs["cpu"], 5, "train on the cpu")
+    worst = {}
+    for a, b in zip(card, cpu):
+        for name, u, v in zip(header[3:-1], a[3:-1], b[3:-1]):
+            worst[name] = max(worst.get(name, 0.0), abs(u - v) / max(abs(v), TRAIN_TOL_FLOOR))
+    print(f"# train card vs cpu, 5 rows: largest difference a column, in units of "
+          f"max(|cpu|, {TRAIN_TOL_FLOOR}): {worst}")
+    if max(worst.values()) > TRAIN_TOL:
+        fail(f"train card vs cpu: rows differ by {worst} (tolerance {TRAIN_TOL})")
+
+
+def train_bn(workdir: str, files, device: str = "0"):
+    """``--no-pretrained --bn on`` for one epoch of 20 steps: finite rows,
+    and batchnorm's running statistics moved from their start (0, 1)."""
+    import numpy as np
+
+    from topaz_tpu_torch.cli.main import main as cli
+    from topaz_tpu_torch.models.factory import load_picker, picker_to_numpy
+
+    (train_images, train_targets) = files["train"]
+    prefix = os.path.join(workdir, "train_bn", "model")
+    log = prefix + ".tsv"
+    t0 = time.perf_counter()
+    cli(["train", "--train-images", train_images, "--train-targets", train_targets,
+         "-n", str(TRAIN_PARTICLES), "-r", "3", "--num-epochs", "1", "--epoch-size", "20",
+         "--no-pretrained", "--bn", "on", "-d", device, "--save-prefix", prefix, "-o", log])
+    check_log(log, 20, "train --no-pretrained --bn on")
+    _, state = picker_to_numpy(load_picker(prefix + "_epoch1.npz", device="cpu"))
+    moved = [min(float(np.abs(s["mean"]).max()), float(np.abs(s["var"] - 1).max()))
+             for layer in state["features"].values() for s in layer.values()]
+    print(f"# train --no-pretrained --bn on, 20 steps in {time.perf_counter() - t0:.3f} s: "
+          f"{len(moved)} batchnorms, smallest move of their running statistics {min(moved)}")
+    if not moved or min(moved) <= 0:
+        fail(f"train --bn on: running statistics did not move ({moved})")
+
+
 def main() -> None:
     sys.path.insert(0, REPO)
     try:
@@ -674,6 +1039,15 @@ def main() -> None:
         pipeline_launches, paths, dev = run_pipeline(workdir)
         hold_pipeline(paths, dev)
         run_batched_cli(workdir, paths)
+    with tempfile.TemporaryDirectory() as workdir:
+        t = time.perf_counter()
+        files = write_training_set(workdir)
+        train_launches, train_extract_launches, argv, prefix, epoch_s = run_training(
+            workdir, files)
+        time_training(workdir, files, argv, prefix, epoch_s)
+        train_bn(workdir, files)
+        train_card_vs_cpu(workdir, files)
+        print(f"# training phase: {time.perf_counter() - t:.1f} s")
     if "jax" in sys.modules or "topaz_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
 
@@ -686,7 +1060,8 @@ def main() -> None:
         "replaces": "topaz_tpu/ops/nms_pallas.py:35",
         "launches": pipeline_launches,
         "launches_by_path": {"pipeline": pipeline_launches, "extract": extract_launches,
-                             "denoise": 0},
+                             "denoise": 0, "train": train_launches,
+                             "train_extract": train_extract_launches},
         "max_abs_err": err, "shape": list(BATCHED_SHAPES[-1]), "r": RADIUS,
         "ms": batched["ms"], "plain_ms": batched["plain_ms"],
         "eager_ms": batched["eager_ms"], "plain_eager_ms": batched["plain_eager_ms"],

@@ -75,6 +75,9 @@ def _entry_points(tmp_path):
     from topaz_tpu_torch.ops.nms import non_maximum_suppression
     from topaz_tpu_torch.pipeline import MicrographPipeline
     from topaz_tpu_torch.preprocess import normalize_images, normalize_images_batched
+    from topaz_tpu_torch.cli.commands import train as train_cli
+    from topaz_tpu_torch.models.factory import new_picker
+    from topaz_tpu_torch.training import train_model
 
     x = np.random.default_rng(0).normal(size=(32, 32)).astype(np.float32)
     path = str(tmp_path / "a.mrc")
@@ -94,6 +97,10 @@ def _entry_points(tmp_path):
         "MicrographPipeline": lambda: MicrographPipeline(scale=1),
         "normalize_images_batched": lambda: normalize_images_batched(
             [path], str(tmp_path / "o"), batch_size=2),
+        "new_picker": lambda: new_picker("resnet8"),
+        "train_model": lambda: train_model(train_cli.add_arguments().parse_args(
+            ["--train-images", str(tmp_path), "--train-targets", str(tmp_path / "t.txt"),
+             "-n", "5"])),
     }
 
 
@@ -101,7 +108,7 @@ def _entry_points(tmp_path):
     "resolve_device", "resolve_device_index", "downsample", "normalize",
     "non_maximum_suppression", "load_picker", "normalize_images",
     "extract_particles", "extract_particles_batched", "MicrographPipeline",
-    "normalize_images_batched"])
+    "normalize_images_batched", "new_picker", "train_model"])
 def test_entry_points_raise_without_cuda(tmp_path, monkeypatch, entry):
     from topaz_tpu_torch.device import DeviceUnavailableError
 

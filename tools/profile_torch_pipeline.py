@@ -15,7 +15,8 @@ batch 8, host prep and device prep:
    card, host clock around work that ends in a synchronisation, and the
    part of it in the GMM fit, in scoring + NMS and in the denoise arm;
 3. one warm pass of ``process`` under ``torch.profiler``: wall time, the
-   device's busy share of it, and device time by operator. A Chrome trace
+   device's busy share of it (the union of its kernel and copy intervals),
+   and device time by operator. A Chrome trace
    goes to ``--out`` when it is given.
 
 Needs a CUDA device; prints the card's name and power limit first.
@@ -102,13 +103,18 @@ def profiled_pass(pipe, paths, batch_size, out_dir, tag):
     for _ in pipe.process(paths, batch_size=batch_size):
         pass  # warm
     torch.cuda.synchronize()
+    import chip_smoke
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        n = sum(1 for _ in pipe.process(paths, batch_size=batch_size))
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        with torch.profiler.record_function("pipeline_pass"):
+            t0 = time.perf_counter()
+            n = sum(1 for _ in pipe.process(paths, batch_size=batch_size))
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    # the union of kernel and copy intervals, without the device-side
+    # copies of the stage spans, which cover whole batches
+    busy_us = chip_smoke.device_busy(prof, "pipeline_pass")[0]
     by_op = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))

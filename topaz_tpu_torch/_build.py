@@ -1,7 +1,8 @@
-"""Builds the package's CUDA sources (``csrc/*.cu``) at first use.
+"""Builds the package's native sources (``csrc/``) at first use.
 
-Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface, which ``ctypes`` loads. The library's name
+Each CUDA source (``*.cu``) is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into a shared library with a plain C interface, which ``ctypes`` loads; each
+host C source (``*.c``) by the system C compiler. The library's name
 carries a hash of its source and flags, so an edited source is rebuilt and a
 built one is reused. Libraries go to ``_build/`` inside the package, which
 version control ignores.
@@ -19,6 +20,7 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+CC_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 
 def find_nvcc() -> str:
@@ -35,10 +37,11 @@ def find_nvcc() -> str:
                        " the CUDA kernels of topaz_tpu_torch cannot be built")
 
 
-def library_path(name: str) -> str:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+def library_path(name: str, ext: str = ".cu") -> str:
+    """Where the library built from ``csrc/<name><ext>`` lives."""
+    flags = NVCC_FLAGS if ext == ".cu" else CC_FLAGS
+    with open(os.path.join(CSRC_DIR, name + ext), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -73,3 +76,24 @@ def build_library(name: str) -> str:
     """Path of the library built from ``csrc/<name>.cu``, building it first
     when needed."""
     return build_libraries([name])[name]
+
+
+def build_c_library(name: str) -> str:
+    """Path of the host library built from ``csrc/<name>.c`` by the system C
+    compiler (``$CC``, else ``cc``), building it first when needed. Raises
+    when there is no compiler or the build fails."""
+    path = library_path(name, ".c")
+    if os.path.exists(path):
+        return path
+    cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc")
+    if not cc:
+        raise RuntimeError(f"no C compiler ($CC, cc, gcc) to build csrc/{name}.c")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    proc = subprocess.run([cc, *CC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".c")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cc} failed on csrc/{name}.c (exit {proc.returncode}):\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, path)
+    return path

@@ -40,7 +40,7 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
         if device == -2:
             raise NotImplementedError(
                 "-d -2 (every device, via the device mesh) is not yet ported "
-                "to topaz_tpu_torch")
+                "to topaz_tpu_torch (ROADMAP P14)")
         if device < -1:
             raise ValueError(f"invalid device index {device}")
         device = "cuda" if device == -1 else f"cuda:{device}"

@@ -1,23 +1,27 @@
-"""Picker loading (port of topaz_tpu/models/factory.py:88-118).
+"""Picker loading, creation and saving (port of
+topaz_tpu/models/factory.py:88-150).
 
 Pretrained aliases resolve to the weight files that ship with the JAX
 package (topaz_tpu/pretrained/detector/<stem>.npz), read by path and
-read-only; other ``.npz`` checkpoints load the same way. JAX parameter trees
-hold HWIO kernels; ``picker_from_numpy`` turns them into the port's OIHW
-module.
+read-only; other ``.npz`` checkpoints load the same way. Checkpoints hold
+the JAX package's layout: ``__meta__`` (arch and constructor kwargs),
+``params:`` with HWIO kernels and ``state:`` with batchnorm running
+statistics. ``picker_from_numpy`` and ``picker_to_numpy`` carry such trees
+into the port's OIHW module and back, so that either package loads the
+other's checkpoints.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from topaz_tpu_torch.models.layers import ConvSpec, ResidSpec
-from topaz_tpu_torch.models.picker import Picker, PickerSpec, make_picker_spec
-from topaz_tpu_torch.utils.serialize import load_checkpoint
+from topaz_tpu_torch.models.picker import Picker, PickerSpec, init_picker, make_picker_spec
+from topaz_tpu_torch.utils.serialize import load_checkpoint, save_checkpoint
 
 _REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 PRETRAINED_DIR = os.path.join(_REPO_DIR, "topaz_tpu", "pretrained", "detector")
@@ -60,6 +64,44 @@ def _oihw(w) -> torch.Tensor:
 
 def _vec(v) -> torch.Tensor:
     return torch.from_numpy(np.array(v, dtype=np.float32))
+
+
+def _hwio(w: torch.Tensor) -> np.ndarray:
+    """OIHW kernel -> HWIO."""
+    return np.ascontiguousarray(w.detach().cpu().numpy().transpose(2, 3, 1, 0))
+
+
+def _np(v: torch.Tensor) -> np.ndarray:
+    return v.detach().cpu().numpy().copy()
+
+
+def picker_to_numpy(model: Picker) -> Tuple[Dict, Dict]:
+    """(params, state) numpy trees of ``model`` in the JAX package's layout,
+    the inverse of ``picker_from_numpy``."""
+    feats, feat_state = {}, {}
+    for i, (lspec, layer) in enumerate(zip(model.spec.features, model.layers)):
+        if not isinstance(lspec, (ConvSpec, ResidSpec)):
+            continue
+        p, s = {}, {}
+        for name in ("conv", "conv0", "conv1", "proj"):
+            if hasattr(layer, name + "_w"):
+                p[name + "_w"] = _hwio(getattr(layer, name + "_w"))
+            if hasattr(layer, name + "_b"):
+                p[name + "_b"] = _np(getattr(layer, name + "_b"))
+        for bn in ("bn", "bn0", "bn1"):
+            if hasattr(layer, bn + "_scale"):
+                p[bn] = {"scale": _np(getattr(layer, bn + "_scale")),
+                         "bias": _np(getattr(layer, bn + "_bias"))}
+                s[bn] = {"mean": _np(getattr(layer, bn + "_mean")),
+                         "var": _np(getattr(layer, bn + "_var"))}
+        if hasattr(layer, "prelu"):
+            p["prelu"] = _np(layer.prelu)
+        feats[str(i)] = p
+        if s:
+            feat_state[str(i)] = s
+    params = {"features": feats, "classifier": {"w": _hwio(model.classifier_w),
+                                                "b": _np(model.classifier_b)}}
+    return params, {"features": feat_state}
 
 
 def picker_from_numpy(spec: PickerSpec, params: Dict, state: Dict) -> Picker:
@@ -120,3 +162,26 @@ def load_picker(name_or_path: str, device="cuda") -> Picker:
     spec = _spec_from_meta(meta)
     model = picker_from_numpy(spec, trees["params"], trees.get("state", {"features": {}}))
     return model.to(device)
+
+
+def save_picker(path: str, model: Picker) -> None:
+    """Write a picker checkpoint that the JAX package's ``load_picker``
+    reads (topaz_tpu/models/factory.py:121-139)."""
+    meta = {"arch": model.spec.arch, "dims": model.spec.dims}
+    meta.update(dict(model.spec.config))
+    params, state = picker_to_numpy(model)
+    save_checkpoint(path, meta, params=params, state=state)
+
+
+def new_picker(arch: str, units=32, bn: bool = False, dropout: float = 0.0,
+               pooling=None, unit_scaling: int = 2, dims: int = 2, seed: int = 0,
+               device="cuda") -> Picker:
+    """A fresh picker for an arch name (topaz_tpu/models/factory.py:142-150),
+    its weights drawn from a CPU generator seeded with ``seed``, on
+    ``device``."""
+    from topaz_tpu_torch.device import resolve_device
+
+    device = resolve_device(device)
+    spec = make_picker_spec(arch, units=units, bn=bn, dropout=dropout, pooling=pooling,
+                            unit_scaling=unit_scaling, dims=dims)
+    return init_picker(spec, torch.Generator().manual_seed(seed)).to(device)

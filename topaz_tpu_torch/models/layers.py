@@ -1,17 +1,22 @@
 """Conv-net building blocks of the pickers (port of
-topaz_tpu/models/layers.py:34-302), in the dense score-map form.
+topaz_tpu/models/layers.py:34-363), in both forms one weight set serves.
 
-Each architecture is a static spec (a tuple of layer descriptors). In the
-dense ("filled") form every stride-s layer runs at stride 1 with its
-dilation multiplied by the accumulated stride, so the network maps a whole
-micrograph to a per-pixel score map; this is what the reference does by
-mutating modules at run time (fill()/unfill(),
-topaz/model/features/resnet.py:31-44,87-99,153-176). Layout is NCHW with
-OIHW kernels; all convolutions are VALID.
+Each architecture is a static spec (a tuple of layer descriptors).
+  * strided ("training") form: convolutions keep their native strides, and
+    a receptive-field-sized crop maps to one logit. Batchnorm may run in
+    train mode (batch statistics, running statistics updated in place) and
+    dropout draws from an explicit ``torch.Generator``.
+  * dense ("filled") form: every stride-s layer runs at stride 1 with its
+    dilation multiplied by the accumulated stride, so the network maps a
+    whole micrograph to a per-pixel score map; this is what the reference
+    does by mutating modules at run time (fill()/unfill(),
+    topaz/model/features/resnet.py:31-44,87-99,153-176).
+Layout is NCHW with OIHW kernels; all convolutions are VALID.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Sequence, Tuple, Union
 
@@ -163,6 +168,25 @@ def batch_norm_apply(x: torch.Tensor, scale, bias, mean, var,
             * scale.reshape(shape) + bias.reshape(shape))
 
 
+def batch_norm_train(x: torch.Tensor, scale, bias, mean, var,
+                     momentum: float = 0.1, eps: float = 1e-5) -> torch.Tensor:
+    """Train-mode batchnorm with torch semantics (topaz_tpu/models/
+    layers.py:191-209): normalizes with the batch's biased variance and
+    updates the running ``mean`` and ``var`` buffers in place, ``var`` with
+    the unbiased variance, at ``momentum``."""
+    return F.batch_norm(x, mean, var, scale, bias, training=True,
+                        momentum=momentum, eps=eps)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout: keep each entry with probability 1 - rate, scaled
+    by 1 / (1 - rate), from uniforms drawn with ``generator`` (on x's
+    device)."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
@@ -202,53 +226,84 @@ class Layer(nn.Module):
         if getattr(spec, "activation", None) == "prelu":
             self.prelu = nn.Parameter(torch.tensor(0.25))
 
-    def forward(self, x: torch.Tensor, acc_stride: int) -> Tuple[torch.Tensor, int]:
-        return apply_layer(self.spec, self, x, acc_stride)
+    def forward(self, x: torch.Tensor, acc_stride: int, dense: bool = True,
+                train: bool = False, generator=None) -> Tuple[torch.Tensor, int]:
+        return apply_layer(self.spec, self, x, acc_stride, dense=dense, train=train,
+                           generator=generator)
 
 
-def _bn(layer: Layer, name: str, x: torch.Tensor) -> torch.Tensor:
-    return batch_norm_apply(x, getattr(layer, name + "_scale"), getattr(layer, name + "_bias"),
-                            getattr(layer, name + "_mean"), getattr(layer, name + "_var"))
+def _bn(layer: Layer, name: str, x: torch.Tensor, train: bool) -> torch.Tensor:
+    norm = batch_norm_train if train else batch_norm_apply
+    return norm(x, getattr(layer, name + "_scale"), getattr(layer, name + "_bias"),
+                getattr(layer, name + "_mean"), getattr(layer, name + "_var"))
 
 
-def apply_layer(spec: LayerSpec, layer: Layer, x: torch.Tensor,
-                acc_stride: int) -> Tuple[torch.Tensor, int]:
-    """Apply one layer in the dense form; returns (y, new_acc_stride). The
-    effective dilation is the layer's dilation times the accumulated
-    stride, and every stride is 1."""
+def apply_layer(spec: LayerSpec, layer: Layer, x: torch.Tensor, acc_stride: int,
+                dense: bool = True, train: bool = False,
+                generator=None) -> Tuple[torch.Tensor, int]:
+    """Apply one layer; returns (y, new_acc_stride) (topaz_tpu/models/
+    layers.py:216-302). ``dense``: the filled form, every stride 1 and the
+    effective dilation the layer's times the accumulated stride; else the
+    strided form, native strides at base dilation 1. ``train``: batchnorm
+    from batch statistics (running ones updated in place), and dropout when
+    a ``generator`` is given."""
     if isinstance(spec, DropoutSpec):
+        if train and spec.rate > 0 and generator is not None:
+            x = dropout(x, spec.rate, generator)
         return x, acc_stride
     prelu = getattr(layer, "prelu", None)
+    stride, base_dil = (1, acc_stride) if dense else (spec.stride, 1)
 
     if isinstance(spec, PoolSpec):
-        y = pool_nd(x, spec.kernel, stride=1, dilation=acc_stride,
+        y = pool_nd(x, spec.kernel, stride=stride, dilation=base_dil,
                     kind=spec.kind, padding=spec.padding)
         return y, acc_stride * spec.stride
 
     if isinstance(spec, ConvSpec):
-        y = conv_nd(x, layer.conv_w, getattr(layer, "conv_b", None),
-                    dilation=spec.dilation * acc_stride)
+        y = conv_nd(x, layer.conv_w, getattr(layer, "conv_b", None), stride=stride,
+                    dilation=spec.dilation * base_dil)
         if spec.bn:
-            y = _bn(layer, "bn", y)
+            y = _bn(layer, "bn", y, train)
         return activate(y, spec.activation, prelu), acc_stride * spec.stride
 
     if isinstance(spec, ResidSpec):
-        d0 = acc_stride                   # conv0 effective dilation
-        d1 = spec.dilation * acc_stride   # conv1 effective dilation
+        d0 = base_dil                     # conv0 effective dilation
+        d1 = spec.dilation * base_dil     # conv1 effective dilation
         h = conv_nd(x, layer.conv0_w, getattr(layer, "conv0_b", None), dilation=d0)
         if spec.bn:
-            h = _bn(layer, "bn0", h)
+            h = _bn(layer, "bn0", h, train)
         h = activate(h, spec.activation, prelu)
-        y = conv_nd(h, layer.conv1_w, getattr(layer, "conv1_b", None), dilation=d1)
+        y = conv_nd(h, layer.conv1_w, getattr(layer, "conv1_b", None), stride=stride,
+                    dilation=d1)
         # skip path: crop the input to align with the valid-conv output
-        # (resnet.py:185-197)
+        # (resnet.py:185-197), then project or subsample it by the stride
         edge = d0 + d1
         xc = x[..., edge:-edge, edge:-edge]
         if hasattr(layer, "proj_w"):
-            xc = conv_nd(xc, layer.proj_w)
+            xc = conv_nd(xc, layer.proj_w, stride=stride)
+        elif stride > 1:
+            xc = xc[..., ::stride, ::stride]
         y = y + xc
         if spec.bn:
-            y = _bn(layer, "bn1", y)
+            y = _bn(layer, "bn1", y, train)
         return activate(y, spec.activation, prelu), acc_stride * spec.stride
 
     raise TypeError(f"unknown layer spec: {spec}")
+
+
+def init_layer_(layer: Layer, generator: torch.Generator) -> None:
+    """Draw one layer's kernels and biases at the JAX package's scales
+    (topaz_tpu/models/layers.py:309-363, torch's conv default):
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in = nin k^2, from
+    ``generator``. Batchnorm (scale 1, bias 0, running mean 0, var 1) and
+    PReLU (0.25) keep the values the layer is built with."""
+    with torch.no_grad():
+        for name in ("conv", "conv0", "conv1", "proj"):
+            w = getattr(layer, name + "_w", None)
+            if w is None:
+                continue
+            bound = 1.0 / math.sqrt(w[0].numel())
+            w.uniform_(-bound, bound, generator=generator)
+            b = getattr(layer, name + "_b", None)
+            if b is not None:
+                b.uniform_(-bound, bound, generator=generator)

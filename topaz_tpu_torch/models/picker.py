@@ -5,12 +5,15 @@ Architecture registry mirroring the reference's model zoo:
   * resnet8 / resnet16 / resnet6 (topaz/model/features/resnet.py:254-339)
   * conv31 / conv63 / conv127    (topaz/model/features/basic.py:12-111,
     topaz/model/factory.py:15-25)
-``Picker`` is the dense score-map form: an (N, H, W) micrograph batch in,
-an (N, H, W) score map out (zero-padded by width//2 first).
+``Picker`` holds one weight set for both forms: the dense score-map form
+(an (N, H, W) micrograph batch in, an (N, H, W) score map out, zero-padded
+by width//2 first), and the strided form that training runs on crops of the
+receptive field, one logit a crop. ``init_picker`` draws fresh weights.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -26,6 +29,7 @@ from topaz_tpu_torch.models.layers import (
     PoolSpec,
     ResidSpec,
     conv_nd,
+    init_layer_,
     receptive_field,
     total_stride,
 )
@@ -235,8 +239,8 @@ def make_picker_spec(arch: str, units=32, bn: bool = False, dropout: float = 0.0
 
 
 class Picker(nn.Module):
-    """Dense-form picker: ``forward`` is apply_picker(dense=True) of the
-    JAX package (topaz_tpu/models/picker.py:266-324)."""
+    """Picker: ``forward`` is ``apply_picker`` of the JAX package
+    (topaz_tpu/models/picker.py:266-324)."""
 
     def __init__(self, spec: PickerSpec):
         super().__init__()
@@ -248,11 +252,42 @@ class Picker(nn.Module):
         self.classifier_w = nn.Parameter(torch.zeros(1, spec.latent_dim, 1, 1))
         self.classifier_b = nn.Parameter(torch.zeros(1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, H, W) images -> (N, H, W) scores (logits)."""
-        p = self.spec.width // 2
-        x = F.pad(x[:, None], (p, p, p, p))
+    def forward(self, x: torch.Tensor, dense: bool = True, pad: Optional[bool] = None,
+                train: bool = False, generator: Optional[torch.Generator] = None,
+                return_latent: bool = False):
+        """(N, H, W) images -> (N, H', W') scores (logits).
+
+        ``dense``: the filled form (stride-1 dilated convolutions); with
+        ``pad`` (default: ``dense``) the input is zero-padded by width//2 so
+        that the score map has the input's shape. ``dense=False``: the
+        strided form, one logit a receptive-field-sized crop. ``train``:
+        batchnorm normalizes with batch statistics and updates its running
+        statistics in place; dropout draws from ``generator``.
+        ``return_latent`` also returns the features before the head."""
+        if pad is None:
+            pad = dense
+        x = x[:, None]
+        if pad:
+            p = self.spec.width // 2
+            x = F.pad(x, (p, p, p, p))
         acc = 1
         for layer in self.layers:
-            x, acc = layer(x, acc)
-        return conv_nd(x, self.classifier_w, self.classifier_b)[:, 0]
+            x, acc = layer(x, acc, dense=dense, train=train, generator=generator)
+        y = conv_nd(x, self.classifier_w, self.classifier_b)[:, 0]
+        return (y, x) if return_latent else y
+
+
+def init_picker(spec: PickerSpec, generator: torch.Generator) -> Picker:
+    """A picker with fresh weights at the JAX package's scales
+    (topaz_tpu/models/picker.py:241-263): each layer as ``init_layer_``
+    draws it, the 1x1 head U(-1/sqrt(nin), 1/sqrt(nin)), all from
+    ``generator`` (a CPU generator gives the same weights whatever device
+    the picker moves to)."""
+    model = Picker(spec)
+    for layer in model.layers:
+        init_layer_(layer, generator)
+    bound = 1.0 / math.sqrt(spec.latent_dim)
+    with torch.no_grad():
+        model.classifier_w.uniform_(-bound, bound, generator=generator)
+        model.classifier_b.uniform_(-bound, bound, generator=generator)
+    return model

@@ -1,8 +1,9 @@
 """Preprocessing workflow: per-micrograph Fourier downsampling and GMM
-normalization (port of topaz_tpu/preprocess.py:53-324, the reference's
-topaz/stats.py:282-355). Each image's downsample and GMM fit run on the
-device, or, batched, the fits of ``batch_size`` shape-bucketed images at
-once; loader threads keep the next files read meanwhile."""
+normalization (port of topaz_tpu/preprocess.py:23-324, the reference's
+topaz/stats.py:17-33,282-355). Each image's downsample and GMM fit run on
+the device, or, batched, the fits of ``batch_size`` shape-bucketed images at
+once; loader threads keep the next files read meanwhile. Also the particle
+pixel count behind training's pi."""
 
 from __future__ import annotations
 
@@ -17,6 +18,29 @@ from topaz_tpu_torch.device import resolve_device
 from topaz_tpu_torch.io.image import load_image, save_image
 from topaz_tpu_torch.ops.fourier import downsample
 from topaz_tpu_torch.ops.gmm import normalize
+
+
+def pixels_given_radius(radius: int, dims: int = 2) -> int:
+    """Pixels a particle counts for in training's pi and p_observed (port of
+    topaz_tpu/preprocess.py:23-43), exactly as the reference counts them
+    (topaz/stats.py:17-25), 2D over-count included: it sums the 2D disk over
+    all 2r+1 planes of a 3D grid, so r = 3 gives 203, not 29. ``-n`` and
+    ``--pi`` mean what they mean in the reference only with this count.
+    Training labels use the true disk (train/data.expand_target_points)."""
+    grid = np.arange(-radius, radius + 1)
+    d2 = grid[:, None] ** 2 + grid[None, :] ** 2
+    if dims == 3:
+        d2 = d2[:, :, None] + grid[None, None, :] ** 2
+        return int((d2 <= radius**2).sum())
+    disk = int((d2 <= radius**2).sum())
+    return disk * (2 * radius + 1)
+
+
+def calculate_pi(expected_num_particles: float, radius: int, total_pixels: int,
+                 dims: int = 2) -> float:
+    """Expected positive fraction from particle count and radius
+    (topaz/stats.py:28-33)."""
+    return pixels_given_radius(radius, dims=dims) * expected_num_particles / total_pixels
 
 
 def normalize_file(

@@ -96,5 +96,10 @@ def timings() -> Dict[str, Dict[str, float]]:
     }
 
 
+def samples(name: str) -> list:
+    """Every recorded time of stage ``name``, in seconds, in order."""
+    return list(_timings.get(name, []))
+
+
 def reset() -> None:
     _timings.clear()
