@@ -75,6 +75,8 @@ Phases, in order; any failure exits non-zero before a result is printed:
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -110,6 +112,15 @@ TRAIN_FILES, TEST_FILES, TRAIN_PARTICLES, TRAIN_LABELED = 12, 4, 60, 40
 # CPU sum float32 in other orders, and five Adam steps carry that forward;
 # the largest measured on an H100 was 2.0e-5, the loss column's: 10x that)
 TRAIN_TOL, TRAIN_TOL_FLOOR = 2e-4, 1e-2
+# card against CPU, denoiser training rows (train, val and best val loss) of
+# the same crops and tiles, relative to the CPU's value: cuDNN and the CPU
+# sum float32 in other orders and the optimizer carries it forward (the
+# largest measured on an H100 was 1.19e-4, a 2D train loss: 10x that)
+DENOISE_TRAIN_TOL = 1.2e-3
+# the 2D denoiser training phase: 12 pairs of 4096^2 (holdout 0.1 leaves 11)
+DENOISE_PAIRS = 12
+# the 3D phase's tomograms, (z, y, x)
+TOMO_SHAPE = (192, 384, 384)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 
@@ -346,18 +357,31 @@ def run_slice(workdir: str):
 
 
 def unet_flops(shape, layout, levels: int = 5) -> int:
-    """FLOPs of one U-Net forward on one (H, W) image: 2 k^2 cin cout a
-    pixel for every convolution, at the pyramid level it runs (encoder i
-    at level i - 1, decoder d at level d - 1; pooling floors odd sizes).
-    Pooling, upsampling, bias and activations are left out."""
+    """FLOPs of one U-Net forward on one (H, W) image or (D, H, W) volume:
+    2 k^dims cin cout a pixel for every convolution, at the pyramid level it
+    runs (encoder i at level i - 1, decoder d at level d - 1; pooling floors
+    odd sizes). Pooling, upsampling, bias and activations are left out."""
     sizes = [tuple(shape)]
     for _ in range(levels):
-        sizes.append((sizes[-1][0] // 2, sizes[-1][1] // 2))
+        sizes.append(tuple(n // 2 for n in sizes[-1]))
     total = 0
     for mod, convs in layout.items():
-        h, w = sizes[int(mod[3:]) - 1]
-        total += sum(2 * k * k * cin * cout * h * w for k, cin, cout in convs.values())
+        n = math.prod(sizes[int(mod[3:]) - 1])
+        total += sum(2 * k ** len(shape) * cin * cout * n for k, cin, cout in convs.values())
     return total
+
+
+def denoise_step_flops(shape, meta, batch: int) -> int:
+    """FLOPs of one denoiser train step on ``batch`` crops of ``shape``: the
+    forward's convolutions, and twice that for the backward (input and
+    weight gradients) less the first convolution's input gradient."""
+    from topaz_tpu_torch.models.denoise import arch_layout
+
+    layout = arch_layout(meta["arch"], meta["nf"], meta["base_width"], meta["top_width"])
+    forward = unet_flops(shape, layout)
+    k, cin, cout = layout["enc1"]["0"]
+    first = 2 * k ** len(shape) * cin * cout * math.prod(shape)
+    return batch * (3 * forward - first)
 
 
 def time_unet_forward():
@@ -1007,6 +1031,356 @@ def train_bn(workdir: str, files, device: str = "0"):
         fail(f"train --bn on: running statistics did not move ({moved})")
 
 
+def cli_captured(argv):
+    """The port's CLI with stdout and stderr captured: (stdout, stderr).
+    The epoch rows are echoed as comment lines."""
+    from topaz_tpu_torch.cli.main import main as cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli(argv)
+    for line in out.getvalue().replace("\r", "\n").splitlines():
+        if line.strip():
+            print(f"#   | {line}")
+    return out.getvalue(), err.getvalue()
+
+
+def denoise_rows(text):
+    """(train, val, best val) loss of each epoch row of a training run."""
+    rows = [line.split("\t") for line in text.replace("\r", "\n").split("\n")
+            if line.startswith("# [")]
+    return [[float(v) for v in r[1:]] for r in rows]
+
+
+def rows_diff(card, cpu, tag: str) -> float:
+    """Largest difference of two runs' rows, relative to the CPU's value."""
+    if len(card) != len(cpu) or not card:
+        fail(f"{tag}: {len(card)} card rows, {len(cpu)} cpu rows")
+    return max(abs(a - b) / max(abs(b), 1e-12) for ra, rb in zip(card, cpu)
+               for a, b in zip(ra, rb))
+
+
+def write_denoise_pairs(workdir: str, n: int, size: int, tag: str):
+    """``n`` noise2noise pairs of ``size``^2 in ``<tag>_A/`` and ``<tag>_B/``
+    (one clean ``make_ctf_micrograph`` image a pair, seed SEED + 200 + i,
+    plus two independent Gaussian draws of twice its std) and one held-out
+    noisy micrograph; returns (dir A, dir B, held-out path, its clean image)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from topaz_tpu_torch.io import mrc
+    from topaz_tpu_torch.utils.synthetic import make_ctf_micrograph
+
+    dirs = [os.path.join(workdir, f"{tag}_{half}") for half in "AB"]
+    for d in dirs:
+        os.makedirs(d)
+
+    def make(i):
+        rng = np.random.default_rng(SEED + 200 + i)
+        clean, _ = make_ctf_micrograph(rng, size=size, n_particles=size // 64, white=0.0,
+                                       pink=0.0)
+        sigma = 2 * float(clean.std())
+        noisy = [clean + rng.standard_normal(clean.shape, dtype=np.float32) * sigma
+                 for _ in dirs]
+        if i == n:  # the held-out micrograph
+            path = os.path.join(workdir, f"{tag}_heldout.mrc")
+            mrc.write(path, noisy[0])
+            return path, clean
+        for d, x in zip(dirs, noisy):
+            mrc.write(os.path.join(d, f"mic{i:02d}.mrc"), x)
+        return None
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as ex:
+        heldout, clean = list(ex.map(make, range(n + 1)))[-1]
+    print(f"# {tag}: {n} pairs of {size}^2 and a held-out micrograph written in "
+          f"{time.perf_counter() - t0:.3f} s")
+    return dirs[0], dirs[1], heldout, clean
+
+
+def check_denoiser_checkpoints(prefix: str, dims: int):
+    """Every ``<prefix>_epoch*.npz`` loads in the port with ``arch_layout``'s
+    keys and shapes; returns their names."""
+    import glob
+
+    from topaz_tpu_torch.models.denoise import arch_layout
+    from topaz_tpu_torch.models.denoise_factory import denoiser_to_numpy, load_denoiser
+
+    paths = sorted(glob.glob(prefix + "_epoch*.npz"))
+    if not paths:
+        fail(f"no checkpoint {prefix}_epoch*.npz")
+    for path in paths:
+        meta, params = denoiser_to_numpy(load_denoiser(path, device="cpu"))
+        layout = arch_layout(meta["arch"], meta["nf"], meta["base_width"], meta["top_width"])
+        got = {(m, i): params[m][i]["w"].shape for m in params for i in params[m]}
+        want = {(m, i): (k,) * dims + (cin, cout) for m, convs in layout.items()
+                for i, (k, cin, cout) in convs.items()}
+        if got != want or meta["dims"] != dims:
+            fail(f"{path}: meta {meta}, shapes differ from arch_layout")
+    return [os.path.basename(p) for p in paths]
+
+
+def run_denoise_train(workdir: str):
+    """Phase 9: ``denoise -a -b`` at full width on 12 pairs of 4096^2, its
+    gates and timings; card against CPU on 4 pairs of 1024^2. Returns the
+    disk_max launches of the training run."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from topaz_tpu_torch.denoise import (Denoise, make_denoise_optimizer, make_denoise_step)
+    from topaz_tpu_torch.io import mrc
+    from topaz_tpu_torch.ops import disk_max as dm
+    from topaz_tpu_torch.train.denoise_data import make_paired_images_samplers
+    from topaz_tpu_torch.utils import profiling
+
+    dir_a, dir_b, heldout, clean = write_denoise_pairs(workdir, DENOISE_PAIRS, SIZE, "n2n")
+    x = mrc.read(heldout)[0]
+    before = Denoise("unet", device="cuda").denoise(x, 1024, 500).cpu().numpy()
+
+    prefix, out = os.path.join(workdir, "n2n", "P"), os.path.join(workdir, "n2n", "out")
+    epochs, steps = 6, -(-(DENOISE_PAIRS - int(0.1 * DENOISE_PAIRS)) // 4)
+    profiling.reset()
+    dm.launches = 0
+    t0 = time.perf_counter()
+    text, _ = cli_captured(["denoise", "-a", dir_a, "-b", dir_b, "--arch", "unet", "-c", "800",
+                            "--batch-size", "4", "--num-epochs", str(epochs), "--save-prefix",
+                            prefix, "-d", "0", "-o", out, heldout])
+    wall = time.perf_counter() - t0
+    launches = dm.launches
+    rows = denoise_rows(text)
+    walls = profiling.samples("denoise_train_epoch")
+    if len(rows) != epochs or not all(math.isfinite(v) for r in rows for v in r):
+        fail(f"denoise training: rows {rows}")
+    names = check_denoiser_checkpoints(prefix, dims=2)
+    y = mrc.read(os.path.join(out, os.path.basename(heldout)))[0]
+    if y.shape != x.shape or not np.isfinite(y).all() or np.array_equal(y, x):
+        fail(f"denoise after training: shape {y.shape}, finite {np.isfinite(y).all()}")
+    if launches:
+        fail(f"denoise training launched disk_max {launches} times")
+    warm = sum(walls[1:]) / len(walls[1:])
+    mse = {k: float(np.mean((v.astype(np.float64) - clean) ** 2))
+           for k, v in (("input", x), ("bundled unet", before), ("trained", y))}
+    print(f"# denoise train: {epochs} epochs of {steps} steps (batch 4 of 800^2) in {wall:.3f} s "
+          f"(data read and standardized in epoch 1); epoch wall "
+          f"{', '.join(f'{t:.3f}' for t in walls)} s; warm {steps / warm:.3f} steps/s, "
+          f"{4 * steps / warm:.3f} crops/s (epoch wall with its validation batch); "
+          f"checkpoints {names}; disk_max launches {launches}")
+    print(f"# denoise train: mean squared error to the clean image (information only): "
+          f"{mse}")
+
+    # one step alone, its bound and peak memory
+    den = Denoise("unet", device="cuda")
+    step = make_denoise_step(den.model, make_denoise_optimizer(den.model))
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    src = torch.randn((4, 800, 800), device="cuda", generator=g)
+    tgt = src + torch.randn((4, 800, 800), device="cuda", generator=g)
+    step(src, tgt, 2.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step(src, tgt, 2.0), iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    flops = denoise_step_flops((800, 800), den.meta, 4)
+    bound_ms = flops / F32_OPS_PER_S * 1e3
+    print(f"# denoise train step alone (unet nf {den.meta['nf']}, 4 x 800^2, L2, adagrad): "
+          f"{step_ms:.3f} ms a step (CUDA events, 10 steps); bound {bound_ms:.3f} ms "
+          f"({flops / 1e12:.4f} TFLOP at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s), "
+          f"{bound_ms / step_ms:.3f} of it; peak memory {peak / 2**30:.3f} GiB")
+    del den, step, src, tgt
+
+    # the device's idle share of a warm epoch: the trained model, the
+    # samplers' file cache filled first
+    train_s, val_s = make_paired_images_samplers(dir_a, dir_b, crop=800)
+    for _ in train_s.batches(4):
+        pass
+    for _ in val_s.batches(4):
+        pass
+    den = Denoise(os.path.join(os.path.dirname(prefix), names[-1]), device="cuda")
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            den.train(train_s, val_s, batch_size=4, num_epochs=1)
+    busy_us, wall_us, by_name = device_busy(prof, "denoise_train_epoch")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"# denoise train: warm epoch under torch.profiler ({steps} steps and the "
+          f"validation batch): wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
+          f"idle share {1 - busy_us / wall_us:.4f}; device time by name (ms): "
+          f"{[(n[:60], round(t / 1e3, 3)) for n, t in top]}")
+
+    # card against CPU
+    a, b, small, _ = write_denoise_pairs(workdir, 4, SIZE // 4, "n2n_small")
+    rows = {}
+    for device in ("0", "cpu"):
+        t0 = time.perf_counter()
+        text, _ = cli_captured(["denoise", "-a", a, "-b", b, "--arch", "unet", "-c", "128",
+                                "--batch-size", "4", "--num-epochs", "2", "-d", device])
+        rows[device] = denoise_rows(text)
+        print(f"# denoise train card vs cpu: -d {device} took {time.perf_counter() - t0:.3f} s")
+    diff = rows_diff(rows["0"], rows["cpu"], "denoise train card vs cpu")
+    print(f"# denoise train card vs cpu, 2 rows of {SIZE // 4}^2 pairs at -c 128: largest "
+          f"difference {diff:.3e} of the cpu value (tolerance {DENOISE_TRAIN_TOL})")
+    if diff > DENOISE_TRAIN_TOL:
+        fail(f"denoise train card vs cpu: rows differ by {diff}")
+    return launches
+
+
+def write_tomograms(workdir: str, shape, tag: str, n_blobs: int = 400):
+    """An even/odd pair of synthetic tomograms of ``shape``: random
+    Gaussian blobs (radius 3-10 voxels, seed SEED + 300) plus independent
+    unit noise in each half; returns (even path, odd path)."""
+    import numpy as np
+
+    from topaz_tpu_torch.io import mrc
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 300)
+    clean = np.zeros(shape, np.float32)
+    for _ in range(n_blobs):
+        r = rng.uniform(3, 10)
+        w = int(2 * r)
+        c = [int(rng.integers(0, n)) for n in shape]
+        sl = tuple(slice(max(0, ci - w), min(n, ci + w + 1)) for ci, n in zip(c, shape))
+        grid = np.ogrid[tuple(slice(s.start - ci, s.stop - ci) for s, ci in zip(sl, c))]
+        clean[sl] += 2.0 * np.exp(-sum(gi.astype(np.float32) ** 2 for gi in grid) / (2 * r * r))
+    paths = []
+    for half in ("even", "odd"):
+        paths.append(os.path.join(workdir, f"{tag}_{half}.mrc"))
+        mrc.write(paths[-1], clean + rng.standard_normal(shape, dtype=np.float32))
+    print(f"# {tag}: even/odd tomograms {shape} written in {time.perf_counter() - t0:.3f} s")
+    return paths
+
+
+def run_denoise3d(workdir: str):
+    """Phase 10: ``denoise3d -a -b`` at full width, then tomogram denoising
+    on both routes; card against CPU on a 64^3 pair. Returns the disk_max
+    launches of the phase's training and denoising."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from topaz_tpu_torch.denoise import Denoise3D, make_denoise_optimizer, make_denoise_step
+    from topaz_tpu_torch.io import mrc
+    from topaz_tpu_torch.models.denoise import arch_layout
+    from topaz_tpu_torch.ops import disk_max as dm
+    from topaz_tpu_torch.utils import profiling
+
+    even, odd = write_tomograms(workdir, TOMO_SHAPE, "tomo")
+    prefix, out = os.path.join(workdir, "tomo", "P3"), os.path.join(workdir, "tomo", "out")
+    profiling.reset()
+    dm.launches = 0
+    t0 = time.perf_counter()
+    text, _ = cli_captured(["denoise3d", "-a", even, "-b", odd, "-c", "96", "--N-train", "40",
+                            "--N-test", "10", "--batch-size", "10", "--num-epochs", "2",
+                            "--save-prefix", prefix, "-d", "0"])
+    train_wall = time.perf_counter() - t0
+    rows = denoise_rows(text)
+    if len(rows) != 2 or not all(math.isfinite(v) for r in rows for v in r):
+        fail(f"denoise3d training: rows {rows}")
+    names = check_denoiser_checkpoints(prefix, dims=3)
+    walls = profiling.samples("denoise_train_epoch")
+    print(f"# denoise3d train: 2 epochs of 4 steps (batch 10 of 96^3) in {train_wall:.3f} s; "
+          f"epoch wall {', '.join(f'{t:.3f}' for t in walls)} s; checkpoints {names}")
+
+    tomo = mrc.read(even)[0]
+    voxels = tomo.size
+    ckpt = prefix + "_epoch2.npz"
+    results = {}
+    for tag, flags in (("defaults -s 96 -p 48", ["-s", "96", "-p", "48"]),
+                       ("--auto-patch", ["--auto-patch"])):
+        outdir = os.path.join(out, tag.split()[0].strip("-"))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, err = cli_captured(["denoise3d", "-m", ckpt, "-o", outdir, "-d", "0", even] + flags)
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        y = mrc.read(os.path.join(outdir, os.path.basename(even)))[0]
+        resident = [line for line in err.splitlines() if "device-resident" in line]
+        print(f"# denoise3d {tag}: {dt:.3f} s for {TOMO_SHAPE}, {voxels / dt:.4e} voxels/s; "
+              f"route {resident[0].lstrip('# ') if resident else 'streaming'}; "
+              f"peak memory {peak / 2**30:.3f} GiB")
+        if not resident or "OOM" in err:
+            fail(f"denoise3d {tag}: the resident route did not run to its end:\n{err[-2000:]}")
+        if y.shape != tomo.shape or not np.isfinite(y).all() or np.array_equal(y, tomo):
+            fail(f"denoise3d {tag}: shape {y.shape}, finite {np.isfinite(y).all()}")
+        results[tag] = y
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cli_captured(["denoise3d", "-m", ckpt, "-o", os.path.join(out, "profiled"), "-d", "0",
+                      even])
+    busy_us, wall_us, _ = device_busy(prof, "denoise3d_volume")
+    print(f"# denoise3d defaults, warm, under torch.profiler: volume wall {wall_us / 1e3:.3f} ms, "
+          f"device busy {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}")
+    launches = dm.launches
+    if launches:
+        fail(f"denoise3d launched disk_max {launches} times")
+
+    den = Denoise3D(ckpt, device="cuda")
+    resident = results["defaults -s 96 -p 48"]
+    for batch in (1, 4):
+        t0 = time.perf_counter()
+        y = den.denoise(tomo, 96, 48, batch_size=batch, verbose=False, device_resident=False)
+        dt = time.perf_counter() - t0
+        err = float(np.abs(y.astype(np.float64) - resident).max() / resident.std())
+        print(f"# denoise3d streaming route, batch {batch}: {dt:.3f} s, {voxels / dt:.4e} "
+              f"voxels/s; against the resident route max abs diff {err:.3e} x std")
+        if den.last_route != "streaming" or err > 1e-4:
+            fail(f"denoise3d streaming batch {batch}: {err} x std from the resident route")
+
+    # the train step and one 192^3 patch's forward alone, against their bounds
+    meta = den.meta
+    layout = arch_layout(meta["arch"], meta["nf"], meta["base_width"], meta["top_width"])
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    patch = torch.randn((1, 1, 192, 192, 192), device="cuda", generator=g)
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms = cuda_ms(lambda: den.model(patch), iters=3, warmup=1)
+        fwd_peak = torch.cuda.max_memory_allocated()
+    fwd_flops = unet_flops((192,) * 3, layout)
+    fwd_bound = fwd_flops / F32_OPS_PER_S * 1e3
+    train = Denoise3D.from_arch("unet", device="cuda")
+    step = make_denoise_step(train.model, make_denoise_optimizer(train.model))
+    src = torch.randn((10, 96, 96, 96), device="cuda", generator=g)
+    tgt = src + torch.randn((10, 96, 96, 96), device="cuda", generator=g)
+    step(src, tgt, 2.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step(src, tgt, 2.0), iters=3, warmup=1)
+    step_peak = torch.cuda.max_memory_allocated()
+    step_flops = denoise_step_flops((96,) * 3, meta, 10)
+    step_bound = step_flops / F32_OPS_PER_S * 1e3
+    print(f"# denoise3d forward of one 192^3 patch alone: {fwd_ms:.3f} ms (CUDA events, 3 "
+          f"calls); bound {fwd_bound:.3f} ms ({fwd_flops / 1e12:.4f} TFLOP at "
+          f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s), {fwd_bound / fwd_ms:.3f} of it; peak memory "
+          f"{fwd_peak / 2**30:.3f} GiB")
+    print(f"# denoise3d train step alone (unet nf {meta['nf']}, 10 x 96^3, L2, adagrad): "
+          f"{step_ms:.3f} ms (CUDA events, 3 steps); bound {step_bound:.3f} ms "
+          f"({step_flops / 1e12:.4f} TFLOP), {step_bound / step_ms:.3f} of it; peak memory "
+          f"{step_peak / 2**30:.3f} GiB")
+    del train, step, src, tgt, patch, den
+
+    # card against CPU on a 64^3 pair at full width
+    e64, o64 = write_tomograms(workdir, (64, 64, 64), "tomo64", n_blobs=8)
+    rows, ys = {}, {}
+    for device in ("0", "cpu"):
+        t0 = time.perf_counter()
+        text, _ = cli_captured(["denoise3d", "-a", e64, "-b", o64, "-c", "32", "--N-train", "4",
+                                "--N-test", "2", "--batch-size", "2", "--num-epochs", "1",
+                                "--save-prefix", os.path.join(workdir, f"t64_{device}", "P"),
+                                "-d", device])
+        rows[device] = denoise_rows(text)
+        outdir = os.path.join(workdir, f"t64_{device}", "out")
+        cli_captured(["denoise3d", "-m", os.path.join(workdir, "t64_0", "P_epoch1.npz"),
+                      "-s", "32", "-p", "16", "-o", outdir, "-d", device, e64])
+        ys[device] = mrc.read(os.path.join(outdir, os.path.basename(e64)))[0]
+        print(f"# denoise3d card vs cpu: -d {device} took {time.perf_counter() - t0:.3f} s")
+    diff = rows_diff(rows["0"], rows["cpu"], "denoise3d card vs cpu")
+    err = float(np.abs(ys["0"].astype(np.float64) - ys["cpu"]).max() / ys["cpu"].std())
+    print(f"# denoise3d card vs cpu, 64^3: rows largest difference {diff:.3e} of the cpu value "
+          f"(tolerance {DENOISE_TRAIN_TOL}); -s 32 -p 16 denoised max abs diff {err:.3e} x std")
+    if diff > DENOISE_TRAIN_TOL or err > 1e-3:
+        fail(f"denoise3d card vs cpu: rows {diff}, denoised {err} x std")
+    return launches
+
+
 def main() -> None:
     sys.path.insert(0, REPO)
     try:
@@ -1048,6 +1422,14 @@ def main() -> None:
         train_bn(workdir, files)
         train_card_vs_cpu(workdir, files)
         print(f"# training phase: {time.perf_counter() - t:.1f} s")
+    with tempfile.TemporaryDirectory() as workdir:
+        t = time.perf_counter()
+        denoise_train_launches = run_denoise_train(workdir)
+        print(f"# denoiser training phase: {time.perf_counter() - t:.1f} s")
+    with tempfile.TemporaryDirectory() as workdir:
+        t = time.perf_counter()
+        denoise3d_launches = run_denoise3d(workdir)
+        print(f"# denoise3d phase: {time.perf_counter() - t:.1f} s")
     if "jax" in sys.modules or "topaz_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
 
@@ -1061,7 +1443,9 @@ def main() -> None:
         "launches": pipeline_launches,
         "launches_by_path": {"pipeline": pipeline_launches, "extract": extract_launches,
                              "denoise": 0, "train": train_launches,
-                             "train_extract": train_extract_launches},
+                             "train_extract": train_extract_launches,
+                             "denoise_train": denoise_train_launches,
+                             "denoise3d": denoise3d_launches},
         "max_abs_err": err, "shape": list(BATCHED_SHAPES[-1]), "r": RADIUS,
         "ms": batched["ms"], "plain_ms": batched["plain_ms"],
         "eager_ms": batched["eager_ms"], "plain_eager_ms": batched["plain_eager_ms"],

@@ -147,8 +147,8 @@ def test_load_denoiser_refuses_what_is_not_ported(tmp_path):
         tfactory.load_denoiser(str(sav), device="cpu")
     with pytest.raises(FileNotFoundError):
         tfactory.load_denoiser(str(tmp_path / "missing.npz"), device="cpu")
-    with pytest.raises(NotImplementedError, match="P12"):
-        tmodels.make_denoiser({"arch": "unet", "dims": 3})
+    with pytest.raises(FileNotFoundError, match="not bundled"):
+        tfactory.load_denoiser("unet-3d", device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tfilters.estimate_unblur_filter_gaussian(np.zeros((16, 16), np.float32))
 

@@ -1,5 +1,5 @@
 """``python -m topaz_tpu_torch denoise -d cpu`` against ``python -m topaz_tpu
-denoise`` (JAX on the CPU), and the paths the port refuses.
+denoise`` (JAX on the CPU), and the paths the port does not run yet.
 
 The two CLIs denoise the same synthetic micrograph with the bundled unet
 and write MRCs that agree to 1e-4 * std of the JAX output (float32
@@ -81,12 +81,14 @@ def test_suffix_and_stack_outputs(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["denoise", "-d", "-2"],
-    ["denoise", "-d", "cpu", "--hdf", "pairs.h5"],
-    ["denoise", "-d", "cpu", "-a", "evens/", "-b", "odds/"],
-    ["denoise3d", "-d", "cpu", "tomo.mrc"],
+    ["denoise", "-d", "-2", "-o", "{d}", "{d}/mic.mrc"],
+    ["denoise3d", "-d", "-2", "-o", "{d}", "{d}/mic.mrc"],
+    ["denoise", "-d", "cpu", "-m", "{d}/model.sav", "-o", "{d}", "{d}/mic.mrc"],
+    ["train", "-d", "cpu", "--dims", "3", "--train-images", "{d}",
+     "--train-targets", "{d}/targets.txt"],
 ])
 def test_not_ported_paths_exit_with_an_error(tmp_path, argv):
+    (tmp_path / "model.sav").write_bytes(b"\x80\x02")
     with pytest.raises(SystemExit) as e:
-        main(argv + ["-o", str(tmp_path), str(tmp_path / "mic.mrc")])
+        main([a.format(d=tmp_path) for a in argv])
     assert "not yet ported" in str(e.value.code)

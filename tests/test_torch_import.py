@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the JAX
-package (nor pandas), no port file imports them, and its entry points raise
-rather than fall back to the CPU when no CUDA device is there."""
+package (nor pandas, nor h5py, which only the ``--hdf`` sampler imports),
+no port file imports them, and its entry points raise rather than fall back
+to the CPU when no CUDA device is there."""
 
 import ast
 import os
@@ -35,8 +36,9 @@ def test_import_loads_no_jax_nor_jax_package():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'topaz_tpu', 'pandas'))\n"
+        "('jax', 'jaxlib', 'topaz_tpu', 'pandas', 'h5py'))\n"
         "print(len([m for m in sys.modules if m.startswith('topaz_tpu_torch')]), bad)\n"
+        "print(' '.join(sorted(m for m in sys.modules if m.startswith('topaz_tpu_torch'))))\n"
         "sys.exit(1 if bad else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
@@ -45,6 +47,9 @@ def test_import_loads_no_jax_nor_jax_package():
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 20, out.stdout
+    scanned = set(out.stdout.splitlines()[1].split())
+    assert {"topaz_tpu_torch.train.denoise_data", "topaz_tpu_torch.cli.commands.denoise3d",
+            "topaz_tpu_torch.denoise", "topaz_tpu_torch.models.denoise_factory"} <= scanned
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
@@ -65,6 +70,21 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+def test_h5py_is_imported_only_by_the_hdf_sampler():
+    """h5py is not on the card's machine: only ``make_hdf5_samplers`` (the
+    ``--hdf`` branch) imports it, inside the function."""
+    where = []
+    for path in _port_files():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for fn in [None] + [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)]:
+            body = tree.body if fn is None else fn.body
+            for node in body:
+                if isinstance(node, ast.Import) and any(a.name == "h5py" for a in node.names):
+                    where.append((os.path.relpath(path, REPO), fn and fn.name))
+    assert where == [("topaz_tpu_torch/train/denoise_data.py", "make_hdf5_samplers")], where
+
+
 def _entry_points(tmp_path):
     from topaz_tpu_torch.device import resolve_device
     from topaz_tpu_torch.extract import extract_particles
@@ -78,6 +98,7 @@ def _entry_points(tmp_path):
     from topaz_tpu_torch.cli.commands import train as train_cli
     from topaz_tpu_torch.models.factory import new_picker
     from topaz_tpu_torch.training import train_model
+    from topaz_tpu_torch.denoise import Denoise, Denoise3D
 
     x = np.random.default_rng(0).normal(size=(32, 32)).astype(np.float32)
     path = str(tmp_path / "a.mrc")
@@ -101,6 +122,8 @@ def _entry_points(tmp_path):
         "train_model": lambda: train_model(train_cli.add_arguments().parse_args(
             ["--train-images", str(tmp_path), "--train-targets", str(tmp_path / "t.txt"),
              "-n", "5"])),
+        "Denoise3D": lambda: Denoise3D.from_arch("unet-small", nf=4),
+        "Denoise_from_arch": lambda: Denoise.from_arch("unet", nf=4),
     }
 
 
@@ -108,7 +131,8 @@ def _entry_points(tmp_path):
     "resolve_device", "resolve_device_index", "downsample", "normalize",
     "non_maximum_suppression", "load_picker", "normalize_images",
     "extract_particles", "extract_particles_batched", "MicrographPipeline",
-    "normalize_images_batched", "new_picker", "train_model"])
+    "normalize_images_batched", "new_picker", "train_model", "Denoise3D",
+    "Denoise_from_arch"])
 def test_entry_points_raise_without_cuda(tmp_path, monkeypatch, entry):
     from topaz_tpu_torch.device import DeviceUnavailableError
 

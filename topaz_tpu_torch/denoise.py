@@ -1,6 +1,6 @@
-"""Denoising workflow for 2D micrographs (port of the 2D inference part of
-topaz_tpu/denoise.py, the reference's topaz/denoise.py:245-490 and
-topaz/commands/denoise.py).
+"""Denoising workflows for 2D micrographs and 3D tomograms, and noise2noise
+training (port of topaz_tpu/denoise.py, the reference's topaz/denoise.py and
+topaz/commands/denoise.py, denoise3d.py).
 
 Each micrograph is uploaded once; the filter pipeline (lowpass ->
 normalize and pixel cutoff -> gaussian, inverse gaussian or whitening
@@ -11,22 +11,38 @@ from the resident micrograph, normalizes each by its own statistics, as
 the reference does (topaz/denoise.py:299-324), and writes its centre into
 a device output. Standard deviations are population ones (ddof 0), as in
 numpy and JAX.
+
+Tomograms (``Denoise3D``) take the volume's statistics, then each padded
+patch's own. Up to ``_DEVICE_RESIDENT_CAP`` bytes the volume is uploaded
+and zero-padded once, every patch is cut and written back on the device
+and the result is fetched once; larger volumes, or a resident run that
+exhausts device memory, stream batches of host-cut patches instead.
+Training (``train_denoiser``) runs an eager autograd step a batch and keeps
+the losses on the device until the epoch ends.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import sys
+import time
 from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from topaz_tpu_torch.device import as_device_tensor, resolve_device
 from topaz_tpu_torch.io import mrc
 from topaz_tpu_torch.io.image import load_image, save_image
 from topaz_tpu_torch.models.denoise import min_input_size
-from topaz_tpu_torch.models.denoise_factory import denoiser_from_numpy, load_denoiser
+from topaz_tpu_torch.models.denoise_factory import (
+    denoiser_from_numpy,
+    load_denoiser,
+    new_denoiser,
+    save_denoiser,
+)
 from topaz_tpu_torch.ops import fourier
 from topaz_tpu_torch.ops.filters import (
     apply_kernel,
@@ -34,6 +50,8 @@ from topaz_tpu_torch.ops.filters import (
     gaussian_denoise_kernel,
     inv_gaussian_kernel,
 )
+from topaz_tpu_torch.train.trainer import make_optimizer
+from topaz_tpu_torch.utils.profiling import stage
 
 
 def _check_min_extent(meta, extents, what: str, flag: str):
@@ -57,17 +75,23 @@ class Denoise:
     """2D micrograph denoiser (topaz/denoise.py:245-332): one model on one
     device. ``dtype="bf16"`` runs weights and activations in bfloat16 with
     float32 statistics and output. Methods take arrays or tensors and
-    return float32 tensors on ``self.device``."""
+    return float32 tensors on ``self.device``. The model comes from an
+    alias or checkpoint path (``model``), a JAX parameter tree (``meta``,
+    ``params``) or a module (``net``)."""
+
+    dims = 2
 
     def __init__(self, model: str = "unet", device="cuda", *, meta=None,
-                 params=None, dtype=None):
+                 params=None, dtype=None, net=None):
         if dtype not in (None, "f32", "bf16"):
             raise ValueError(f"unsupported denoise dtype {dtype!r}: use f32 or bf16")
         self.device = resolve_device(device)
-        if meta is not None:
-            net = denoiser_from_numpy(meta, params)
-        else:
-            net = load_denoiser(model, device=self.device)
+        if net is None:
+            net = (denoiser_from_numpy(meta, params) if meta is not None
+                   else load_denoiser(model, device=self.device))
+        if net.meta.get("dims", 2) != self.dims:
+            raise ValueError(f"{type(self).__name__} needs a {self.dims}D denoiser, got a "
+                             f"{net.meta.get('dims', 2)}D {net.meta['arch']!r}")
         self.meta = net.meta
         self.dtype = torch.bfloat16 if dtype == "bf16" else torch.float32
         self.model = net.to(device=self.device, dtype=self.dtype)
@@ -75,24 +99,35 @@ class Denoise:
         # this instance; images this large go straight to patches
         self._oom_area = None
 
+    @classmethod
+    def from_arch(cls, arch: str, device="cuda", dtype=None, **arch_kw):
+        """An untrained denoiser from an architecture name (the reference's
+        fresh-model branch, topaz/commands/denoise.py:88-98); ``arch_kw``
+        are ``new_denoiser``'s nf, base_width, top_width and seed."""
+        return cls(device=device, dtype=dtype,
+                   net=new_denoiser(arch, dims=cls.dims, **arch_kw))
+
     def _normalized_forward(self, xb: torch.Tensor) -> torch.Tensor:
-        """(B, H, W) frames, each normalized by its own mean and std,
-        denoised, and restored to its own scale."""
-        mu = xb.mean(dim=(1, 2), keepdim=True)
-        std = _std(xb, dim=(1, 2), keepdim=True)
+        """(B, *spatial) frames or patches, each normalized by its own mean
+        and std, denoised, and restored to its own scale."""
+        axes = tuple(range(1, xb.ndim))
+        mu = xb.mean(dim=axes, keepdim=True)
+        std = _std(xb, dim=axes, keepdim=True)
         with torch.inference_mode():
             y = self.model(((xb - mu) / std)[:, None].to(self.dtype))[:, 0]
         return y.float() * std + mu
 
     def _apply(self, x: torch.Tensor) -> torch.Tensor:
         """Denoise one whole image with its own statistics
-        (topaz/denoise.py:274-296). A device out-of-memory falls back to
-        patch denoising with a warning, on the same device."""
+        (topaz/denoise.py:274-296). In 2D a device out-of-memory falls back
+        to patch denoising with a warning, on the same device."""
         if self._oom_area is not None and x.numel() >= self._oom_area:
             return self._patch_fallback(x)
         try:
             return self._normalized_forward(x[None])[0]
         except torch.cuda.OutOfMemoryError as e:
+            if self.dims != 2:
+                raise
             # drop the traceback: its frames hold the failed forward's tensors
             err = e.with_traceback(None)
         self._oom_area = x.numel() if self._oom_area is None else min(self._oom_area, x.numel())
@@ -172,6 +207,319 @@ class Denoise:
         print(f"# WARNING: batched denoising of {tuple(frames.shape)} exceeds "
               f"device memory; denoising frames one at a time", file=sys.stderr)
         return torch.stack([self._apply(f) for f in frames])
+
+    def train(self, train_sampler, val_sampler, **kw):
+        """noise2noise training of this denoiser's model in place
+        (``train_denoiser``'s keywords)."""
+        if self.dtype != torch.float32:
+            raise ValueError("denoiser training runs in float32; load the model without bf16")
+        train_denoiser(self.model, train_sampler, val_sampler, dims=self.dims, **kw)
+
+
+def auto_patch_size(shape, padding: int = 48, max_extent: int = 256,
+                    align: int = 32) -> int:
+    """The 3D inference patch size that minimizes the voxels processed
+    (topaz_tpu/denoise.py:445-479): among patch sizes whose padded extent
+    d = s + 2 * padding is a multiple of ``align`` and at most
+    ``max_extent``, the one with the least n_patches * d^3, the larger on a
+    tie. The reference defaults (-s 96 -p 48) process (96 + 96)^3 voxels for
+    each 96^3 of output, and a patch that does not divide the tomogram adds
+    the overshoot of a ceiling grid."""
+    best = None
+    s0 = (-2 * padding) % align
+    while s0 < align:  # patches below one alignment step are pure overlap
+        s0 += align
+    for s in range(s0, max_extent - 2 * padding + 1, align):
+        d = s + 2 * padding
+        n_patches = 1
+        for n in shape:
+            n_patches *= -(-int(n) // s)
+        cost = n_patches * d**3
+        if best is None or cost < best[0] or (cost == best[0] and s > best[1]):
+            best = (cost, s)
+    if best is None:
+        raise ValueError(
+            f"--auto-patch cannot satisfy padding {padding}: the padded "
+            f"patch extent would exceed the limit {max_extent} "
+            f"(largest supported padding is {(max_extent - align) // 2}); "
+            f"lower -p or pass an explicit patch size with -s")
+    return best[1]
+
+
+class Denoise3D(Denoise):
+    """Tomogram denoiser (topaz/denoise.py:336-377). ``denoise`` returns a
+    float32 numpy volume; ``last_route`` names the route its last patched
+    call took ("resident" or "streaming")."""
+
+    dims = 3
+
+    # largest volume kept resident on the device beside its padded copy,
+    # its output and one padded patch's activations (the JAX package's cap)
+    _DEVICE_RESIDENT_CAP = 512 * 1024 * 1024
+
+    last_route = None
+
+    def _denoise_resident(self, tomo: np.ndarray, patch_size: int, padding: int,
+                          verbose: bool = True):
+        """Patch denoising with the volume resident on the device: upload
+        and zero-pad it once, cut each padded patch there, apply the volume's
+        and the patch's statistics, write the patch's centre into a device
+        output, and fetch it once. Returns None (the caller streams) over the
+        residency cap or when the device runs out of memory."""
+        if tomo.nbytes > self._DEVICE_RESIDENT_CAP:
+            return None
+        s, p = patch_size, padding
+        ext = [-(-int(n) // s) * s for n in tomo.shape]
+        origins = [(i, j, k) for i in range(0, ext[0], s) for j in range(0, ext[1], s)
+                   for k in range(0, ext[2], s)]
+        if verbose:
+            print(f"# device-resident: {len(origins)} patches of {s + 2 * p}^3", file=sys.stderr)
+        try:
+            return self._resident_run(tomo, s, p, ext, origins)
+        except torch.cuda.OutOfMemoryError:
+            pass  # the failed run's tensors go with its frame
+        torch.cuda.empty_cache()
+        if verbose:
+            print("# device-resident volume OOM; falling back to the streaming patch path",
+                  file=sys.stderr)
+        return None
+
+    def _resident_run(self, tomo, s, p, ext, origins) -> np.ndarray:
+        d = s + 2 * p
+        shape = tomo.shape
+        pad = []
+        for e, n in zip(reversed(ext), reversed(shape)):  # F.pad lists the last axis first
+            pad += [p, p + e - n]
+        vol = as_device_tensor(tomo, self.device)
+        mu, std = vol.mean(), _std(vol)
+        volp = F.pad(vol, pad)  # zero fill, as the streaming route's patches
+        out = torch.empty(ext, device=self.device)
+        for i, j, k in origins:
+            xn = (volp[i:i + d, j:j + d, k:k + d] - mu) / std
+            y = self._normalized_forward(xn[None])[0]
+            out[i:i + s, j:j + s, k:k + s] = y[p:p + s, p:p + s, p:p + s] * std + mu
+        return out[:shape[0], :shape[1], :shape[2]].cpu().numpy()
+
+    def _denoise_streaming(self, tomo: np.ndarray, patch_size: int, padding: int,
+                           batch_size: int, volume_num: int, total_volumes: int,
+                           verbose: bool) -> np.ndarray:
+        """Host patch loop (topaz/denoise.py:346-377): zero-filled padded
+        patches cut on the host, normalized by the volume's statistics,
+        denoised ``batch_size`` at a time with their own statistics (the last
+        batch filled with copies of its last patch), centres stitched on the
+        host."""
+        mu, std = tomo.mean(), tomo.std()
+        denoised = np.zeros_like(tomo)
+        d = patch_size + 2 * padding
+        grid = [int(np.ceil(n / patch_size)) for n in tomo.shape]
+        total, count = int(np.prod(grid)), 0
+
+        def extract_patch(i, j, k):
+            x = np.zeros((d, d, d), dtype=np.float32)
+            lo = [max(0, c - padding) for c in (i, j, k)]
+            hi = [min(n, c + patch_size + padding) for c, n in zip((i, j, k), tomo.shape)]
+            x[tuple(slice(padding - c + a, padding - c + b)
+                    for c, a, b in zip((i, j, k), lo, hi))] = \
+                tomo[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+            return x
+
+        origins = [(pi * patch_size, pj * patch_size, pk * patch_size)
+                   for pi in range(grid[0]) for pj in range(grid[1]) for pk in range(grid[2])]
+        for start in range(0, len(origins), batch_size):
+            chunk = origins[start:start + batch_size]
+            xs = [extract_patch(*o) for o in chunk]
+            while len(xs) < batch_size:
+                xs.append(xs[-1])
+            xn = (np.stack(xs) - mu) / std
+            ys = self._normalized_forward(torch.from_numpy(xn).to(self.device)).cpu().numpy()
+            ys = ys * std + mu
+            for (i, j, k), y in zip(chunk, ys):
+                patch = denoised[i:i + patch_size, j:j + patch_size, k:k + patch_size]
+                pz, py, px = patch.shape
+                patch[...] = y[padding:padding + pz, padding:padding + py, padding:padding + px]
+                count += 1
+                if verbose:
+                    print(f"# [{volume_num}/{total_volumes}] {round(count * 100 / total)}%",
+                          file=sys.stderr, end="\r")
+        if verbose:
+            print(" " * 100, file=sys.stderr, end="\r")
+        return denoised
+
+    def denoise(self, tomo, patch_size: int = 96, padding: int = 48, batch_size: int = 1,
+                volume_num: int = 1, total_volumes: int = 1, verbose: bool = True,
+                device_resident=None) -> np.ndarray:
+        """Denoise one volume, whole (``patch_size < 1``) or in patches;
+        ``patch_size == -2`` picks ``auto_patch_size``. ``device_resident``
+        None routes by size, True requires the resident route, False
+        streams."""
+        tomo = np.asarray(tomo, dtype=np.float32)
+        if patch_size == -2:
+            patch_size = auto_patch_size(tomo.shape, padding=padding)
+            if verbose:
+                print(f"# auto patch size {patch_size} for volume {tuple(tomo.shape)} "
+                      f"(padding {padding})", file=sys.stderr)
+        if patch_size < 1:
+            return self._apply(as_device_tensor(tomo, self.device)).cpu().numpy()
+        _check_min_extent(self.meta, (patch_size + 2 * padding,) * 3,
+                          "inference patches", "-s/--patch-size")
+        if device_resident is not False:
+            out = self._denoise_resident(tomo, patch_size, padding, verbose=verbose)
+            if out is not None:
+                self.last_route = "resident"
+                return out
+            if device_resident:
+                raise ValueError("device_resident=True requested but the volume cannot stay "
+                                 "resident (over the residency cap or out of device memory)")
+        self.last_route = "streaming"
+        return self._denoise_streaming(tomo, patch_size, padding, batch_size, volume_num,
+                                       total_volumes, verbose)
+
+
+# ---------------------------------------------------------------------------
+# noise2noise training (topaz/denoising/models.py:636-758)
+# ---------------------------------------------------------------------------
+
+LOSSES = ("L0", "L1", "L2")
+
+
+def denoise_loss(loss_fn: str, pred: torch.Tensor, target: torch.Tensor,
+                 gamma: float) -> torch.Tensor:
+    """The noise2noise criteria: L0 (annealed by ``gamma``), L1 and L2."""
+    if loss_fn == "L0":
+        return torch.mean((torch.abs(pred - target) + 1e-8) ** gamma)
+    if loss_fn == "L1":
+        return torch.mean(torch.abs(pred - target))
+    if loss_fn == "L2":
+        return torch.mean((pred - target) ** 2)
+    raise ValueError(f"Loss function: {loss_fn} not one of [L0, L1, L2].")
+
+
+def make_denoise_optimizer(model: torch.nn.Module, optim: str = "adagrad", lr: float = 0.001,
+                           weight_decay: float = 0):
+    """The denoiser's optimizer (topaz_tpu/denoise.py:735-740): sgd always
+    with momentum 0.9 and nesterov, whatever ``--momentum`` says; weight
+    decay added to the gradient first."""
+    params = list(model.parameters())
+    if optim == "sgd":
+        return make_optimizer(params, lr, "sgd", momentum=0.9, nesterov=True,
+                              weight_decay=weight_decay)
+    return make_optimizer(params, lr, optim, weight_decay=weight_decay)
+
+
+def make_denoise_step(model: torch.nn.Module, optimizer, loss_fn: str = "L2"):
+    """``step(src, tgt, gamma) -> loss``: one eager autograd step on (B,
+    *spatial) device tensors, updating the model in place. The loss stays on
+    the device."""
+    params = optimizer.params
+
+    def step(src: torch.Tensor, tgt: torch.Tensor, gamma: float) -> torch.Tensor:
+        loss = denoise_loss(loss_fn, model(src[:, None])[:, 0], tgt, gamma)
+        grads = torch.autograd.grad(loss, params)
+        optimizer.step(list(grads))
+        return loss.detach()
+
+    return step
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host batch on ``device``; to a card through pinned memory without
+    waiting, so that the host prepares the next batch while the device works."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def _weighted_mean(losses: List[torch.Tensor], weights: List[int]) -> float:
+    """Batch losses (device scalars) weighted by batch size, in float64 on
+    the host: one fetch an epoch."""
+    if not losses:
+        return 0.0
+    vals = torch.stack(losses).double().cpu().numpy()
+    w = np.asarray(weights, dtype=np.float64)
+    return float((vals * w).sum() / w.sum())
+
+
+def train_denoiser(model: torch.nn.Module, train_sampler, val_sampler, loss_fn: str = "L2",
+                   optim: str = "adagrad", lr: float = 0.001, weight_decay: float = 0,
+                   batch_size: int = 10, num_epochs: int = 500, num_workers: int = 1,
+                   verbose: bool = True, save_best: bool = False,
+                   save_interval: Optional[int] = None, save_prefix: Optional[str] = None,
+                   dims: int = 2) -> torch.nn.Module:
+    """noise2noise training (topaz_tpu/denoise.py:685-840) of ``model`` in
+    place, on its device: L0 (annealed), L1 or L2; adagrad, adam or sgd;
+    save-best on the validation loss and every ``save_interval`` epochs to
+    ``<save_prefix>_epoch<n>.npz``. Rows go to stdout as the JAX package
+    prints them. ``num_workers`` is a compatibility argument. Each epoch
+    runs in a ``stage("denoise_train_epoch")`` span."""
+    if loss_fn not in LOSSES:
+        raise ValueError(f"Loss function: {loss_fn} not one of [L0, L1, L2].")
+    output, log = sys.stdout, sys.stderr
+    device = next(model.parameters()).device
+    meta = model.meta
+    digits = int(np.ceil(np.log10(max(num_epochs, 2))))
+    if save_prefix is not None:
+        save_dir = os.path.dirname(save_prefix)
+        if save_dir and not os.path.exists(save_dir):
+            print("# creating save directory:", save_dir, file=log)
+            os.makedirs(save_dir)
+
+    start_time = time.time()
+    now = datetime.datetime.now()
+    print(f"# starting time: {now.month:02d}/{now.day:02d}/{now.year:04d} "
+          f"{now.hour:02d}h:{now.minute:02d}m:{now.second:02d}s", file=log)
+
+    optimizer = make_denoise_optimizer(model, optim, lr, weight_decay)
+    step = make_denoise_step(model, optimizer, loss_fn)
+
+    print("# training model...", file=log)
+    if verbose:
+        print("\t".join(["Epoch", "Train Loss", "Val Loss", "Best Val Loss"]), file=output)
+
+    def _save(epoch):
+        save_denoiser(save_prefix + f"_epoch{epoch:0{digits}}.npz", meta, model)
+
+    best_val = np.inf
+    for epoch in range(num_epochs):
+        gamma = 2 - (epoch - 1) * 2 / num_epochs if loss_fn == "L0" else 2.0
+        with stage("denoise_train_epoch"):
+            losses, weights = [], []
+            for src, tgt in train_sampler.batches(batch_size, shuffle=True):
+                if epoch == 0 and not weights:
+                    _check_min_extent(meta, src.shape[1:1 + dims], "training tiles",
+                                      "--crop/-c")
+                losses.append(step(_upload(src, device), _upload(tgt, device), gamma))
+                weights.append(src.shape[0])
+            if epoch == 0 and not weights:
+                raise ValueError(
+                    "the training sampler produced no batches — check that the paired "
+                    "training data is non-empty and larger than the crop/tile size")
+            train_loss = _weighted_mean(losses, weights)
+
+            losses, weights = [], []
+            with torch.no_grad():
+                for src, tgt in val_sampler.batches(batch_size, shuffle=False):
+                    pred = model(_upload(src, device)[:, None])[:, 0]
+                    losses.append(denoise_loss(loss_fn, pred, _upload(tgt, device), gamma))
+                    weights.append(src.shape[0])
+            val_loss = _weighted_mean(losses, weights)
+
+        if val_loss < best_val:
+            best_val = val_loss
+            if save_best and save_prefix is not None:
+                _save(epoch + 1)
+        if verbose:
+            vals = (train_loss, val_loss, best_val)
+            print("\t".join([f"# [{epoch}/{num_epochs}]"] + [str(round(v, 5)) for v in vals]),
+                  file=output, end="\r")
+        if save_prefix is not None and save_interval is not None \
+                and (epoch + 1) % save_interval == 0:
+            _save(epoch + 1)
+
+    print("# training completed!", file=log)
+    print("# total time:", time.strftime("%Hh:%Mm:%Ss", time.gmtime(time.time() - start_time)),
+          file=log)
+    return model
 
 
 # ---------------------------------------------------------------------------
@@ -320,23 +668,103 @@ def denoise_stack(path: str, output_path: str, models: List[Denoise],
 
 
 # ---------------------------------------------------------------------------
+# 3D drivers (topaz/denoise.py:495-557)
+# ---------------------------------------------------------------------------
+
+def denoise_tomogram(path: str, model: Denoise3D, outdir: Optional[str] = None,
+                     suffix: str = "", patch_size: int = 96, padding: int = 48,
+                     volume_num: int = 1, total_volumes: int = 1,
+                     gaus: Optional[float] = None, verbose: bool = True) -> np.ndarray:
+    """Denoise one tomogram file, optionally Gaussian-filter the result on
+    the device, and write it as float32 with its header's min, max and mean
+    updated (topaz/denoise.py:495-530). Without ``outdir`` the output goes
+    beside the input as ``<name><suffix or .denoised><ext>``. The denoising
+    runs in a ``stage("denoise3d_volume")`` span."""
+    name = os.path.basename(path)
+    tomo, header, ext_header = mrc.read(path)
+    with stage("denoise3d_volume"):
+        denoised = model.denoise(tomo.astype(np.float32), patch_size=patch_size,
+                                 padding=padding, volume_num=volume_num,
+                                 total_volumes=total_volumes, verbose=verbose)
+        if gaus is not None:
+            denoised = apply_kernel(denoised, gaussian_denoise_kernel(gaus, dims=3),
+                                    device=model.device, dims=3).cpu().numpy()
+    if not outdir:
+        no_ext, ext = os.path.splitext(path)
+        outpath = no_ext + (suffix or ".denoised") + ext
+    else:
+        no_ext, ext = os.path.splitext(name)
+        outpath = os.path.join(outdir, no_ext + suffix + ext)
+    header = header.replace(mode=2, amin=denoised.min(), amax=denoised.max(),
+                            amean=denoised.mean())
+    mrc.write(outpath, denoised, header=header, extended_header=ext_header)
+    return denoised
+
+
+def denoise_tomogram_stream(volumes: List[str], model: Denoise3D, output_path: str,
+                            suffix: str = "", gaus: Optional[float] = None,
+                            patch_size: int = 96, padding: int = 48, verbose: bool = True):
+    """Denoise a list of tomogram files (topaz/denoise.py:533-557). Each
+    output is written, not kept: a session's tomograms would not fit in
+    host memory."""
+    total = len(volumes)
+    if output_path:
+        os.makedirs(output_path, exist_ok=True)
+    g = gaus if (gaus or 0) > 0 else None
+    for idx, path in enumerate(volumes):
+        denoise_tomogram(path, model, outdir=output_path, suffix=suffix, patch_size=patch_size,
+                         padding=padding, volume_num=idx + 1, total_volumes=total, gaus=g,
+                         verbose=verbose)
+        print(f"# {idx + 1} of {total} tomograms denoised.", file=sys.stderr, end="\r")
+    print("", file=sys.stderr)
+
+
+# ---------------------------------------------------------------------------
 # CLI glue
 # ---------------------------------------------------------------------------
 
+def _train_pair_given(a, b, flags: str) -> bool:
+    """True when both halves of a training pair were given; one alone is an
+    error here, where the JAX CLI ignores it (2D) or fails inside the
+    sampler (3D)."""
+    if (a is None) != (b is None):
+        sys.exit(f"error: denoiser training needs both {flags}")
+    return a is not None
+
+
 def denoise_main(args):
-    """topaz denoise, inference (topaz/commands/denoise.py:75-130)."""
-    if args.dir_a is not None or args.dir_b is not None or args.hdf is not None:
-        raise NotImplementedError(
-            "denoiser training (-a/-b, --hdf) is not yet ported to "
-            "topaz_tpu_torch (ROADMAP P11)")
+    """topaz denoise (topaz/commands/denoise.py:75-130): with -a/-b or
+    --hdf, train the --arch model (the bundled weights where --arch names
+    them) and denoise with it; otherwise denoise with the -m models."""
     device = resolve_device(args.device)
-    models = []
-    for name in args.model:
-        if name == "none":
-            print("# Warning: no denoising model will be used", file=sys.stderr)
-            continue
-        print("# Loading model:", name, file=sys.stderr)
-        models.append(Denoise(name, device=device, dtype=args.precision))
+    do_train = _train_pair_given(args.dir_a, args.dir_b, "-a/--dir-a and -b/--dir-b")
+    if do_train or args.hdf is not None:
+        from topaz_tpu_torch.train.denoise_data import (make_hdf5_samplers,
+                                                        make_paired_images_samplers)
+
+        try:
+            denoiser = Denoise(args.arch, device=device)
+        except FileNotFoundError:
+            denoiser = Denoise.from_arch(args.arch, device=device)
+        if args.hdf is None:
+            train_s, val_s = make_paired_images_samplers(
+                args.dir_a, args.dir_b, crop=args.crop, holdout=args.holdout,
+                cutoff=args.pixel_cutoff)
+        else:
+            train_s, val_s = make_hdf5_samplers(args.hdf, holdout=args.holdout,
+                                                cutoff=args.pixel_cutoff)
+        denoiser.train(train_s, val_s, loss_fn=args.criteria, optim=args.optim, lr=args.lr,
+                       batch_size=args.batch_size, num_epochs=args.num_epochs, save_best=True,
+                       save_interval=args.save_interval, save_prefix=args.save_prefix)
+        models = [denoiser]
+    else:
+        models = []
+        for name in args.model:
+            if name == "none":
+                print("# Warning: no denoising model will be used", file=sys.stderr)
+                continue
+            print("# Loading model:", name, file=sys.stderr)
+            models.append(Denoise(name, device=device, dtype=args.precision))
     if not models or len(args.micrographs) < 1:
         return
 
@@ -352,3 +780,59 @@ def denoise_main(args):
         return denoise_stack(args.micrographs[0], args.output, models, **kw)
     return denoise_stream(args.micrographs, args.output, args.format_, args.suffix,
                           models, **kw)
+
+
+class _TileSampler:
+    """One mode ("train" or "test") of a ``PairedTiles3D``, with the
+    ``batches(batch_size, shuffle)`` interface of the 2D samplers."""
+
+    def __init__(self, data, mode: str):
+        self.data, self.mode = data, mode
+
+    def batches(self, batch_size: int, shuffle: bool = True):
+        return self.data.batches(batch_size, mode=self.mode, shuffle=shuffle)
+
+
+def denoise3d_main(args):
+    """topaz denoise3d (topaz/commands/denoise3d.py:88-130): with -a/-b,
+    train (the -m model if it loads, else a fresh 3D unet) on even/odd tile
+    pairs; then denoise the volumes."""
+    device = resolve_device(args.device)
+    if _train_pair_given(args.even_train_path, args.odd_train_path,
+                         "-a/--even-train-path and -b/--odd-train-path"):
+        from topaz_tpu_torch.train.denoise_data import PairedTiles3D
+
+        try:
+            denoiser = Denoise3D(args.model, device=device)
+        except FileNotFoundError:
+            denoiser = Denoise3D.from_arch("unet", device=device,
+                                           base_width=args.base_kernel_width)
+        data = PairedTiles3D(args.even_train_path, args.odd_train_path, args.crop,
+                             args.N_train, args.N_test)
+        denoiser.train(_TileSampler(data, "train"), _TileSampler(data, "test"),
+                       loss_fn=args.criteria, optim=args.optim, lr=args.lr,
+                       weight_decay=args.weight_decay, batch_size=args.batch_size,
+                       num_epochs=args.num_epochs, save_best=True,
+                       save_interval=args.save_interval, save_prefix=args.save_prefix)
+    else:
+        if args.model == "none":
+            print("# Warning: no denoising model will be used", file=sys.stderr)
+            return
+        print("# Loading model:", args.model, file=sys.stderr)
+        try:
+            denoiser = Denoise3D(args.model, device=device, dtype=args.precision)
+        except FileNotFoundError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            print("Hint: the 3D pretrained weights are not bundled in this installation; "
+                  "train a model with -a/--even-train-path and -b/--odd-train-path, then "
+                  "pass it with -m.", file=sys.stderr)
+            sys.exit(1)
+
+    if len(args.volumes) < 1:
+        return
+    shown = "auto" if args.patch_size == -2 else args.patch_size
+    print(f"# denoising {len(args.volumes)} tomograms with patch size={shown} and "
+          f"padding={args.patch_padding}", file=sys.stderr)
+    denoise_tomogram_stream(args.volumes, denoiser, args.output, suffix=args.suffix,
+                            gaus=args.gaussian, patch_size=args.patch_size,
+                            padding=args.patch_padding)

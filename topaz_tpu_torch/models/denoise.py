@@ -1,4 +1,4 @@
-"""Noise2noise denoiser architectures, 2D (port of
+"""Noise2noise denoiser architectures in 2D and 3D (port of
 topaz_tpu/models/denoise.py, the reference's topaz/denoising/models.py).
 
   * UDenoiseNet       ``unet`` (5 levels), and ``unet3`` with
@@ -8,14 +8,16 @@ topaz_tpu/models/denoise.py, the reference's topaz/denoising/models.py).
   * DenoiseNet2       ``fcnet``: three wide convolutions
   * AffineDenoise     ``affine``: one 31x31 convolution
 
-Layout is NCHW with OIHW kernels. Module and parameter names follow the
-reference's ``nn.Sequential`` layout (``enc1.0.weight``, ``dec1.4.bias``,
-``net.2.weight``, ``filter.weight``), which is also the key layout of the
-JAX package's parameter trees, so weights carry across by name. Every
-convolution is SAME with an odd kernel, i.e. zero padding k//2 on each
-side; pooling is a VALID 2x max (odd sizes floor); the decoder is the plain
-form: nearest upsample with the integer source-index rule, concatenate
-``[up(h), skip]`` on the channel axis, convolve.
+Every module takes ``dims`` (2 or 3): layout NCHW with OIHW kernels, or
+NCDHW with OIDHW kernels (``nn.Conv3d``, ``nn.MaxPool3d``). Module and
+parameter names follow the reference's ``nn.Sequential`` layout
+(``enc1.0.weight``, ``dec1.4.bias``, ``net.2.weight``, ``filter.weight``),
+which is also the key layout of the JAX package's parameter trees, so
+weights carry across by name. Every convolution is SAME with an odd kernel,
+i.e. zero padding k//2 on each side; pooling is a VALID 2x max (odd sizes
+floor); the decoder is the plain form: nearest upsample with the integer
+source-index rule on every spatial axis, concatenate ``[up(h), skip]`` on
+the channel axis, convolve.
 """
 
 from __future__ import annotations
@@ -29,10 +31,14 @@ from torch import nn
 LEAK = 0.1
 
 
-def _conv(cin: int, cout: int, k: int) -> nn.Conv2d:
+_CONV = {2: nn.Conv2d, 3: nn.Conv3d}
+_POOL = {2: nn.MaxPool2d, 3: nn.MaxPool3d}
+
+
+def _conv(cin: int, cout: int, k: int, dims: int = 2) -> nn.Module:
     if k % 2 != 1:
         raise ValueError(f"denoiser kernels are odd-sized, got {k}")
-    return nn.Conv2d(cin, cout, k, padding=k // 2)
+    return _CONV[dims](cin, cout, k, padding=k // 2)
 
 
 def _lrelu() -> nn.LeakyReLU:
@@ -47,9 +53,9 @@ def nearest_index(n_in: int, n_out: int, device=None) -> torch.Tensor:
     return (torch.arange(n_out, device=device) * n_in) // n_out
 
 
-def up_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Nearest resize of the last two axes of ``x`` to ``size``."""
-    for axis, n_out in ((-2, size[0]), (-1, size[1])):
+def up_nearest(x: torch.Tensor, size: Tuple[int, ...]) -> torch.Tensor:
+    """Nearest resize of the last ``len(size)`` axes of ``x`` to ``size``."""
+    for axis, n_out in zip(range(-len(size), 0), size):
         n_in = x.shape[axis]
         if n_in != n_out:
             x = x.index_select(axis, nearest_index(n_in, n_out, x.device))
@@ -57,7 +63,7 @@ def up_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
 
 
 def _up_cat(h: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-    return torch.cat([up_nearest(h, skip.shape[-2:]), skip], dim=1)
+    return torch.cat([up_nearest(h, skip.shape[2:]), skip], dim=1)
 
 
 class UDenoiseNet(nn.Module):
@@ -70,24 +76,26 @@ class UDenoiseNet(nn.Module):
     skipless = ()
 
     def __init__(self, nf: int = 48, base_width: int = 11, top_width: int = 3,
-                 residual: bool = False):
+                 residual: bool = False, dims: int = 2):
         super().__init__()
         self.residual = residual
         L = self.levels
-        self.enc1 = nn.Sequential(_conv(1, nf, base_width), _lrelu(), nn.MaxPool2d(2))
+        conv = lambda cin, cout, k: _conv(cin, cout, k, dims)  # noqa: E731
+        pool = _POOL[dims]
+        self.enc1 = nn.Sequential(conv(1, nf, base_width), _lrelu(), pool(2))
         for i in range(2, L + 1):
-            setattr(self, f"enc{i}", nn.Sequential(_conv(nf, nf, 3), _lrelu(), nn.MaxPool2d(2)))
-        setattr(self, f"enc{L + 1}", nn.Sequential(_conv(nf, nf, 3), _lrelu()))
+            setattr(self, f"enc{i}", nn.Sequential(conv(nf, nf, 3), _lrelu(), pool(2)))
+        setattr(self, f"enc{L + 1}", nn.Sequential(conv(nf, nf, 3), _lrelu()))
         for d in range(L, 1, -1):
             cin = 2 * nf if d == L or d in self.skipless else 3 * nf
             setattr(self, f"dec{d}", nn.Sequential(
-                _conv(cin, 2 * nf, 3), _lrelu(), _conv(2 * nf, 2 * nf, 3), _lrelu()))
+                conv(cin, 2 * nf, 3), _lrelu(), conv(2 * nf, 2 * nf, 3), _lrelu()))
         self.dec1 = nn.Sequential(
-            _conv(2 * nf + (1 not in self.skipless), 64, top_width), _lrelu(),
-            _conv(64, 32, top_width), _lrelu(), _conv(32, 1, top_width))
+            conv(2 * nf + (1 not in self.skipless), 64, top_width), _lrelu(),
+            conv(64, 32, top_width), _lrelu(), conv(32, 1, top_width))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, 1, H, W) -> (N, 1, H, W)."""
+        """(N, 1, *spatial) -> (N, 1, *spatial)."""
         L = self.levels
         skips = [x]
         for i in range(1, L + 1):
@@ -95,7 +103,7 @@ class UDenoiseNet(nn.Module):
         h = getattr(self, f"enc{L + 1}")(skips.pop())
         for d in range(L, 0, -1):
             skip = skips.pop()
-            h = up_nearest(h, skip.shape[-2:]) if d in self.skipless else _up_cat(h, skip)
+            h = up_nearest(h, skip.shape[2:]) if d in self.skipless else _up_cat(h, skip)
             h = getattr(self, f"dec{d}")(h)
         return x - h if self.residual else h
 
@@ -117,46 +125,68 @@ class DenoiseNet2(nn.Module):
     """``fcnet``: conv -> lrelu -> conv -> lrelu -> conv, all
     ``base_width`` wide (reference models.py:52-66)."""
 
-    def __init__(self, nf: int = 48, base_width: int = 11):
+    def __init__(self, nf: int = 48, base_width: int = 11, dims: int = 2):
         super().__init__()
         self.net = nn.Sequential(
-            _conv(1, nf, base_width), _lrelu(), _conv(nf, nf, base_width), _lrelu(),
-            _conv(nf, 1, base_width))
+            _conv(1, nf, base_width, dims), _lrelu(), _conv(nf, nf, base_width, dims),
+            _lrelu(), _conv(nf, 1, base_width, dims))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net(x)
 
 
 class AffineDenoise(nn.Module):
-    """One learnable 31x31 convolution (reference topaz/filters.py:40-48)."""
+    """One learnable 31-wide convolution (reference topaz/filters.py:40-48)."""
 
-    def __init__(self, width: int = 31):
+    def __init__(self, width: int = 31, dims: int = 2):
         super().__init__()
-        self.filter = _conv(1, 1, width)
+        self.filter = _conv(1, 1, width, dims)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.filter(x)
 
 
 def make_denoiser(meta: Dict) -> nn.Module:
-    """An untrained module for a checkpoint's meta dict (arch, nf,
+    """An uninitialised module for a checkpoint's meta dict (arch, nf,
     base_width, top_width, dims)."""
-    arch = meta["arch"]
-    if meta.get("dims", 2) != 2:
-        raise NotImplementedError(
-            "3D denoisers are not yet ported to topaz_tpu_torch (ROADMAP P12)")
+    arch, dims = meta["arch"], meta.get("dims", 2)
+    if dims not in _CONV:
+        raise ValueError(f"denoisers are 2D or 3D, got dims={dims}")
     nf, bw, tw = meta.get("nf", 48), meta.get("base_width", 11), meta.get("top_width", 3)
     if arch in ("unet", "unet3"):
-        return UDenoiseNet(nf, bw, tw, residual=arch == "unet3")
+        return UDenoiseNet(nf, bw, tw, residual=arch == "unet3", dims=dims)
     if arch == "unet-small":
-        return UDenoiseNetSmall(nf, bw, tw)
+        return UDenoiseNetSmall(nf, bw, tw, dims=dims)
     if arch == "unet2":
-        return UDenoiseNet2(nf, bw, tw)
+        return UDenoiseNet2(nf, bw, tw, dims=dims)
     if arch == "fcnet":
-        return DenoiseNet2(nf, bw)
+        return DenoiseNet2(nf, bw, dims=dims)
     if arch == "affine":
-        return AffineDenoise()
+        return AffineDenoise(dims=dims)
     raise ValueError(f"unknown denoiser arch: {arch}")
+
+
+@torch.no_grad()
+def init_denoiser(meta: Dict, generator: torch.Generator) -> nn.Module:
+    """A module for ``meta`` initialised at the JAX package's scales
+    (topaz_tpu/models/denoise.py:408-433): every weight and bias uniform in
+    +-1/sqrt(cin * k^dims), drawn from ``generator`` (a CPU generator) in
+    the layout's order, weight then bias; the affine model all zeros. The
+    draws are not JAX's, so the values differ from its for a seed."""
+    model = make_denoiser(meta)
+    arch, dims = meta["arch"], meta.get("dims", 2)
+    layout = arch_layout(arch, meta.get("nf", 48), meta.get("base_width", 11),
+                         meta.get("top_width", 3))
+    for mod, convs in layout.items():
+        for idx, (k, cin, _) in convs.items():
+            conv = getattr(model, mod)[int(idx)] if idx else getattr(model, mod)
+            bound = 1.0 / np.sqrt(cin * k ** dims)
+            for p in (conv.weight, conv.bias):
+                if arch == "affine":
+                    p.zero_()
+                else:
+                    p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
+    return model
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
-"""Denoiser loading (port of topaz_tpu/models/denoise_factory.py).
+"""Denoiser loading, creation and saving (port of
+topaz_tpu/models/denoise_factory.py).
 
 Pretrained aliases resolve to the weight files that ship with the JAX
 package (topaz_tpu/pretrained/denoise/<stem>.npz), read by path and
 read-only; other ``.npz`` checkpoints load the same way. JAX parameter
-trees hold HWIO kernels under reference module names; ``denoiser_from_numpy``
-turns them into the port's OIHW module.
+trees hold HWIO (DHWIO in 3D) kernels under reference module names;
+``denoiser_from_numpy`` turns them into the port's OIHW (OIDHW) module and
+``denoiser_to_numpy`` back, so ``save_denoiser`` writes the JAX package's
+layout and each package loads the other's checkpoints.
 """
 
 from __future__ import annotations
@@ -17,8 +20,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from topaz_tpu_torch.models.denoise import make_denoiser
-from topaz_tpu_torch.utils.serialize import load_checkpoint
+from topaz_tpu_torch.models.denoise import init_denoiser, make_denoiser
+from topaz_tpu_torch.utils.serialize import load_checkpoint, save_checkpoint
 
 _REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 PRETRAINED_DIR = os.path.join(_REPO_DIR, "topaz_tpu", "pretrained", "denoise")
@@ -38,9 +41,9 @@ PRETRAINED_DENOISERS = {
 
 def denoiser_from_numpy(meta: Dict, params: Dict) -> nn.Module:
     """The port's module for a JAX denoiser parameter tree given as numpy
-    arrays: ``params[module][index] = {"w": HWIO, "b": (cout,)}``, or
-    ``params["filter"] = {"w", "b"}`` for the affine model. The module holds
-    ``meta`` as ``.meta`` and comes back in eval mode, on the CPU."""
+    arrays: ``params[module][index] = {"w": HWIO or DHWIO, "b": (cout,)}``,
+    or ``params["filter"] = {"w", "b"}`` for the affine model. The module
+    holds ``meta`` as ``.meta`` and comes back in eval mode, on the CPU."""
     model = make_denoiser(meta)
     sd = {}
     for mod, entry in params.items():
@@ -48,11 +51,48 @@ def denoiser_from_numpy(meta: Dict, params: Dict) -> nn.Module:
         for idx, p in convs.items():
             key = f"{mod}.{idx}." if idx else f"{mod}."
             w = np.asarray(p["w"], dtype=np.float32)
-            sd[key + "weight"] = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+            n = w.ndim
+            sd[key + "weight"] = torch.from_numpy(
+                np.ascontiguousarray(w.transpose(n - 1, n - 2, *range(n - 2))))
             sd[key + "bias"] = torch.from_numpy(np.array(p["b"], dtype=np.float32))
     model.load_state_dict(sd, strict=True)
     model.meta = dict(meta)
     return model.eval()
+
+
+def denoiser_to_numpy(model: nn.Module):
+    """(meta, params) of a module in the JAX package's tree layout, the
+    inverse of ``denoiser_from_numpy``."""
+    params: Dict = {}
+    for key, t in model.state_dict().items():
+        *path, kind = key.split(".")
+        a = t.detach().float().cpu().numpy()
+        if kind == "weight":
+            a = np.ascontiguousarray(a.transpose(*range(2, a.ndim), 1, 0))
+        node = params.setdefault(path[0], {})
+        if len(path) == 2:
+            node = node.setdefault(path[1], {})
+        node["w" if kind == "weight" else "b"] = a
+    return dict(model.meta), params
+
+
+def new_denoiser(arch: str, nf: int = 48, base_width: int = 11, top_width: int = 3,
+                 dims: int = 2, seed: int = 0) -> nn.Module:
+    """An untrained denoiser for an arch name (``unet-3d`` is the 3D
+    ``unet``), initialised at the JAX package's scales from a CPU generator
+    seeded with ``seed``; in eval mode, on the CPU, meta in ``.meta``."""
+    kind = "unet" if arch == "unet-3d" else arch
+    meta = {"arch": kind, "nf": nf, "base_width": base_width, "top_width": top_width,
+            "dims": dims}
+    model = init_denoiser(meta, torch.Generator().manual_seed(seed))
+    model.meta = meta
+    return model.eval()
+
+
+def save_denoiser(path: str, meta: Dict, model: nn.Module) -> None:
+    """Write a denoiser checkpoint (.npz: meta and the parameter tree in the
+    JAX package's layout)."""
+    save_checkpoint(path, meta, params=denoiser_to_numpy(model)[1])
 
 
 def _pretrained_path(stem: str) -> str:

@@ -3,8 +3,8 @@
 autocovariance (port of topaz_tpu/ops/filters.py:20-87,132-162, the
 reference's topaz/filters.py and topaz/denoise.py:22-172).
 
-Kernels are built on the host in numpy; images are 2D tensors and every
-filter runs on ``device``.
+Kernels are built on the host in numpy; images are 2D tensors (volumes 3D
+for ``apply_kernel``) and every filter runs on ``device``.
 """
 
 from __future__ import annotations
@@ -35,15 +35,21 @@ def inverse_filter(w: np.ndarray) -> np.ndarray:
     return np.fft.fftshift(np.fft.irfft2(1 / Fw, s=w.shape))
 
 
-def apply_kernel(x, w, device="cuda") -> torch.Tensor:
-    """SAME-correlate one 2D image with a dense 2D kernel
-    (AffineFilter/GaussianDenoise.apply semantics, topaz/filters.py:28-80).
-    SAME pads (k-1)//2 before and k//2 after each axis, as XLA does."""
+def apply_kernel(x, w, device="cuda", dims: int = 2) -> torch.Tensor:
+    """SAME-correlate one 2D image, or with ``dims=3`` one volume, with a
+    dense kernel of as many axes (AffineFilter/GaussianDenoise.apply
+    semantics, topaz/filters.py:28-80). SAME pads (k-1)//2 before and k//2
+    after each axis, as XLA does."""
     x = as_device_tensor(x, device)
     w = torch.as_tensor(np.asarray(w, dtype=np.float32), device=x.device)
-    kh, kw = w.shape
-    xp = F.pad(x[None, None], ((kw - 1) // 2, kw // 2, (kh - 1) // 2, kh // 2))
-    return F.conv2d(xp, w[None, None])[0, 0]
+    if x.ndim != dims or w.ndim != dims:
+        raise ValueError(f"apply_kernel(dims={dims}) got a {x.ndim}D input and a "
+                         f"{w.ndim}D kernel")
+    pad = []
+    for k in reversed(w.shape):  # F.pad lists the last axis first
+        pad += [(k - 1) // 2, k // 2]
+    conv = F.conv2d if dims == 2 else F.conv3d
+    return conv(F.pad(x[None, None], pad), w[None, None])[0, 0]
 
 
 def gaussian_denoise_kernel(sigma: float, scale: int = 5, dims: int = 2) -> np.ndarray:

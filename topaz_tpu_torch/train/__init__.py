@@ -1,2 +1,3 @@
-"""Picker training: objectives, crop sampling, augmentation, folds and the
-train step (port of topaz_tpu/train/, 2D)."""
+"""Training: the picker's objectives, crop sampling, augmentation, folds and
+train step, and the denoisers' paired-image and tomogram-tile samplers
+(port of topaz_tpu/train/)."""

@@ -35,16 +35,22 @@ class Optimizer:
         corrected;
       * adagrad: accumulator from 0, update g / sqrt(acc + 1e-10), 0 where
         acc is 0;
-      * sgd: plain, or with a momentum trace t = g + momentum t;
-      * rmsprop: decay 0.9, update g / sqrt(nu + 1e-8)."""
+      * sgd: plain, or with a momentum trace t = g + momentum t, whose
+        update is t, or with ``nesterov`` g + momentum t;
+      * rmsprop: decay 0.9, update g / sqrt(nu + 1e-8).
+    ``weight_decay`` adds weight_decay * w to each gradient before the
+    rule, as ``optax.chain(optax.add_decayed_weights(wd), opt)`` does."""
 
     KINDS = ("adam", "adagrad", "sgd", "rmsprop")
 
     def __init__(self, params: List[torch.Tensor], lr: float, kind: str = "adam",
-                 momentum: float = 0.0):
+                 momentum: float = 0.0, nesterov: bool = False, weight_decay: float = 0.0):
         if kind not in self.KINDS:
             raise ValueError(f"unknown optimizer: {kind}")
+        if nesterov and not (kind == "sgd" and momentum):
+            raise ValueError("nesterov needs sgd with momentum")
         self.params, self.lr, self.kind, self.momentum = params, lr, kind, momentum
+        self.nesterov, self.weight_decay = nesterov, weight_decay
         self.count = 0
         n_slots = {"adam": 2, "adagrad": 1, "sgd": 1 if momentum else 0, "rmsprop": 1}[kind]
         self.slots = [[torch.zeros_like(p) for p in params] for _ in range(n_slots)]
@@ -53,6 +59,8 @@ class Optimizer:
     def step(self, grads: List[torch.Tensor]) -> None:
         params, lr = self.params, self.lr
         self.count += 1
+        if self.weight_decay > 0:
+            grads = torch._foreach_add(grads, params, alpha=self.weight_decay)
         if self.kind == "adam":
             b1, b2, eps = 0.9, 0.999, 1e-8
             mu, nu = self.slots
@@ -74,7 +82,8 @@ class Optimizer:
                 (trace,) = self.slots
                 torch._foreach_mul_(trace, self.momentum)
                 torch._foreach_add_(trace, grads)
-                grads = trace
+                grads = (torch._foreach_add(grads, trace, alpha=self.momentum)
+                         if self.nesterov else trace)
             torch._foreach_add_(params, grads, alpha=-lr)
         else:
             (nu,) = self.slots
@@ -87,9 +96,10 @@ class Optimizer:
 
 
 def make_optimizer(params: List[torch.Tensor], lr: float, optim: str = "adam",
-                   momentum: float = 0.0) -> Optimizer:
+                   momentum: float = 0.0, nesterov: bool = False,
+                   weight_decay: float = 0.0) -> Optimizer:
     """An optimizer by name (adam/adagrad/rmsprop/sgd) over ``params``."""
-    return Optimizer(params, lr, optim, momentum)
+    return Optimizer(params, lr, optim, momentum, nesterov, weight_decay)
 
 
 @dataclass
