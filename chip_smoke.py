@@ -70,7 +70,37 @@ Phases, in order; any failure exits non-zero before a result is printed:
    ``--no-pretrained --bn on`` for 20 steps (running statistics move); and
    the default command at ``--epoch-size 5 --minibatch-size 64`` on the
    card and the CPU, five train rows within ``TRAIN_TOL``.
-8. Print the kernels line, the card line, and last the result line.
+8. The radius search (``run_extract_targets``), on the training phase's 16
+   normalized micrographs with every planted particle a target:
+   ``extract -m resnet8_u32 -t -6 --targets`` with the CLI's grid (r = 5
+   to 100 in steps of 5; r = 97 and up take the kernel's global route).
+   One line a radius (AUPRC, RMSE, recall, wall and matching ms, greedy
+   rounds, disk_max launches); it fails unless every radius ran and
+   launched the kernel three times a round on maps that stayed on the card
+   (no NMS call uploaded a map). Then ``-r <found>
+   --only-validate`` (one line, the grid's AUPRC within 1e-3, no picks
+   written); the kernel alone at (512, 512), r = 100; card against CPU on 4
+   micrographs at r = 5, 15, 50, 100 (scores within ``PIPELINE_TOL`` x
+   max(1, |score|), picks equal but at near-ties of that size, AUPRC within
+   1e-3); ``--per-micrograph --suffix _topaz`` in the coord, star, box,
+   json and csv formats on the card and the CPU, each file equal but its
+   scores, held to ``PIPELINE_TOL``; ``--patch-size 128`` against
+   whole-image scoring on the card (maps and picks to ``PIPELINE_TOL``).
+9. Denoiser training and ``denoise3d`` (``run_denoise_train``,
+   ``run_denoise3d``).
+10. 3D picking (``run_extract3d``): a 3D resnet8 at units 32, its weights
+   drawn from seed 0, saved as .npz; a 192 x 384 x 384 tomogram of planted
+   blobs scored in 32 tiles of 166^3 (wall and device time against the
+   FLOP bound, peak memory), the sphere-max NMS alone at r = 8, then
+   ``extract --dims 3 -r 8`` through the CLI (``z_coord`` column, picks
+   against the library run's). Card against CPU on a 48 x 96 x 96 crop
+   (one tile): scores within ``PIPELINE_TOL`` x max(1, |score|), picks
+   equal but at near-ties, ``--targets --only-validate`` AUPRC within
+   1e-3. The phase must launch no disk_max: the 3D path has no TPU kernel.
+11. Print the kernels line, the card line, and last the result line.
+
+``--only PHASE ...`` runs the kernel check and those phases alone and
+prints no result line (for trying a phase on the card).
 """
 
 from __future__ import annotations
@@ -196,10 +226,10 @@ def disk_max_bound(shape, r: int, itemsize: int):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_disk_max(shape, g):
-    """Device time a call (CUDA graph) and eager time a call of kernel and
-    plain version on a random f32 map of ``shape`` at r = RADIUS, beside
-    the bound."""
+def time_disk_max(shape, g, r=RADIUS, calls=200):
+    """Device time a call (CUDA graph of ``calls`` calls) and eager time a
+    call of kernel and plain version on a random f32 map of ``shape`` at
+    radius ``r``, beside the bound."""
     import torch
 
     from topaz_tpu_torch.ops import disk_max as dm
@@ -207,13 +237,13 @@ def time_disk_max(shape, g):
 
     x = torch.randn(shape, device="cuda", generator=g)
     times = {
-        "ms": graph_ms(lambda: dm.disk_max(x, RADIUS, NEG), 200),
-        "plain_ms": graph_ms(lambda: plain(x, RADIUS, NEG), 20),
-        "eager_ms": cuda_ms(lambda: dm.disk_max(x, RADIUS, NEG), 200),
-        "plain_eager_ms": cuda_ms(lambda: plain(x, RADIUS, NEG), 20),
+        "ms": graph_ms(lambda: dm.disk_max(x, r, NEG), calls),
+        "plain_ms": graph_ms(lambda: plain(x, r, NEG), 20),
+        "eager_ms": cuda_ms(lambda: dm.disk_max(x, r, NEG), calls),
+        "plain_eager_ms": cuda_ms(lambda: plain(x, r, NEG), 20),
     }
-    times["bound_ms"], times["bound_by"] = disk_max_bound(x.shape, RADIUS, 4)
-    print(f"# disk_max f32 {shape} r={RADIUS}: device time a call (CUDA graph) "
+    times["bound_ms"], times["bound_by"] = disk_max_bound(x.shape, r, 4)
+    print(f"# disk_max f32 {shape} r={r}: device time a call (CUDA graph) "
           f"kernel {times['ms']:.5f} ms, plain {times['plain_ms']:.5f} ms; eager a call "
           f"kernel {times['eager_ms']:.5f} ms, plain {times['plain_eager_ms']:.5f} ms; "
           f"bound {times['bound_ms']:.5f} ms ({times['bound_by']})")
@@ -265,20 +295,21 @@ def read_picks(path):
     return picks
 
 
-def compare_picks(card, cpu, tie=1e-5, labels=("card", "cpu"), relative=False):
+def compare_picks(card, cpu, tie=1e-5, labels=("card", "cpu"), relative=False,
+                  radius=RADIUS, threshold=THRESHOLD):
     """Differing picks are allowed only where the two deciding scores lie
     within ``tie``: the pick of one run against a pick of the other run
-    inside the NMS radius, or against the threshold. Returns the largest
-    score difference of the common picks. ``relative`` measures each
-    difference in units of max(1, |score|)."""
+    inside the NMS ``radius``, or against the ``threshold``. Picks are keyed
+    by their coordinates, (x, y) or (x, y, z). Returns the largest score
+    difference of the common picks. ``relative`` measures each difference
+    in units of max(1, |score|)."""
     def diff(a, b):
         return abs(a - b) / (max(1.0, abs(a)) if relative else 1.0)
 
     for mine, other, label in ((card, cpu, labels[0]), (cpu, card, labels[1])):
         for p in sorted(set(mine) - set(other)):
-            near = [q for q in other
-                    if (q[0] - p[0]) ** 2 + (q[1] - p[1]) ** 2 <= RADIUS ** 2]
-            gap = min([diff(mine[p], THRESHOLD)] + [diff(mine[p], other[q]) for q in near])
+            near = [q for q in other if sum((a - b) ** 2 for a, b in zip(p, q)) <= radius ** 2]
+            gap = min([diff(mine[p], threshold)] + [diff(mine[p], other[q]) for q in near])
             print(f"# pick {p} only in the {label} run: score {mine[p]}, "
                   f"closest deciding score gap {gap}")
             if gap > tie:
@@ -522,7 +553,7 @@ def run_pipeline_pass(pipe, paths, tag: str, batch_size: int = BATCH):
 
 
 def picks_of(scores, coords):
-    return {(int(x), int(y)): float(s) for s, (x, y) in zip(scores, coords)}
+    return {tuple(int(v) for v in c): float(s) for s, c in zip(scores, coords)}
 
 
 def run_pipeline(workdir: str):
@@ -698,7 +729,8 @@ def write_training_set(workdir: str, n_train: int = TRAIN_FILES, n_test: int = T
     / 8. The training files label the first ``n_labeled`` particles of each
     micrograph (positive-unlabeled, so that ``-n n_particles`` gives pi above
     the observed fraction and GE-binomial stays GE-binomial); the test
-    files label all."""
+    files label all, and ``all_targets`` holds every particle of every
+    micrograph."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -727,7 +759,13 @@ def write_training_set(workdir: str, n_train: int = TRAIN_FILES, n_test: int = T
     print(f"# training set: {len(made)} micrographs {size}^2 written in {t1 - t0:.3f} s, "
           f"normalized (-s 8 --batch-size 8) in {time.perf_counter() - t1:.3f} s; "
           f"particles a micrograph {[len(c) for _, c in made]}")
-    files = {}
+    files = {"all_targets": os.path.join(workdir, "all_targets.txt")}
+    with open(files["all_targets"], "w") as f:
+        print("image_name\tx_coord\ty_coord", file=f)
+        for path, centers in made:
+            name = os.path.splitext(os.path.basename(path))[0]
+            for y, x in centers:
+                print(f"{name}\t{round(x / 8)}\t{round(y / 8)}", file=f)
     for split, part, labeled in (("train", made[:n_train], n_labeled),
                                  ("test", made[n_train:], n_particles)):
         images = os.path.join(workdir, f"{split}_images.txt")
@@ -1227,7 +1265,8 @@ def run_denoise_train(workdir: str):
 def write_tomograms(workdir: str, shape, tag: str, n_blobs: int = 400):
     """An even/odd pair of synthetic tomograms of ``shape``: random
     Gaussian blobs (radius 3-10 voxels, seed SEED + 300) plus independent
-    unit noise in each half; returns (even path, odd path)."""
+    unit noise in each half; returns ((even path, odd path), the blobs'
+    centres as (z, y, x) rows)."""
     import numpy as np
 
     from topaz_tpu_torch.io import mrc
@@ -1235,10 +1274,12 @@ def write_tomograms(workdir: str, shape, tag: str, n_blobs: int = 400):
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED + 300)
     clean = np.zeros(shape, np.float32)
+    centers = []
     for _ in range(n_blobs):
         r = rng.uniform(3, 10)
         w = int(2 * r)
         c = [int(rng.integers(0, n)) for n in shape]
+        centers.append(c)
         sl = tuple(slice(max(0, ci - w), min(n, ci + w + 1)) for ci, n in zip(c, shape))
         grid = np.ogrid[tuple(slice(s.start - ci, s.stop - ci) for s, ci in zip(sl, c))]
         clean[sl] += 2.0 * np.exp(-sum(gi.astype(np.float32) ** 2 for gi in grid) / (2 * r * r))
@@ -1247,7 +1288,7 @@ def write_tomograms(workdir: str, shape, tag: str, n_blobs: int = 400):
         paths.append(os.path.join(workdir, f"{tag}_{half}.mrc"))
         mrc.write(paths[-1], clean + rng.standard_normal(shape, dtype=np.float32))
     print(f"# {tag}: even/odd tomograms {shape} written in {time.perf_counter() - t0:.3f} s")
-    return paths
+    return paths, np.array(centers)
 
 
 def run_denoise3d(workdir: str):
@@ -1264,7 +1305,7 @@ def run_denoise3d(workdir: str):
     from topaz_tpu_torch.ops import disk_max as dm
     from topaz_tpu_torch.utils import profiling
 
-    even, odd = write_tomograms(workdir, TOMO_SHAPE, "tomo")
+    (even, odd), _ = write_tomograms(workdir, TOMO_SHAPE, "tomo")
     prefix, out = os.path.join(workdir, "tomo", "P3"), os.path.join(workdir, "tomo", "out")
     profiling.reset()
     dm.launches = 0
@@ -1358,7 +1399,7 @@ def run_denoise3d(workdir: str):
     del train, step, src, tgt, patch, den
 
     # card against CPU on a 64^3 pair at full width
-    e64, o64 = write_tomograms(workdir, (64, 64, 64), "tomo64", n_blobs=8)
+    (e64, o64), _ = write_tomograms(workdir, (64, 64, 64), "tomo64", n_blobs=8)
     rows, ys = {}, {}
     for device in ("0", "cpu"):
         t0 = time.perf_counter()
@@ -1381,7 +1422,373 @@ def run_denoise3d(workdir: str):
     return launches
 
 
+def picker_dense_flops(spec, window) -> int:
+    """FLOPs of one dense (filled) picker forward on one VALID window of
+    ``window`` (the tile plus its halo): 2 k^dims cin cout a voxel for
+    every convolution at the size it runs (stride 1, dilation times the
+    accumulated stride; resnet skip projections; the 1x1 head). Pooling,
+    batchnorm and activations are left out."""
+    from topaz_tpu_torch.models.layers import ConvSpec, PoolSpec, ResidSpec
+
+    dims, n, acc, total = len(window), list(window), 1, 0
+    for s in spec.features:
+        if isinstance(s, ConvSpec):
+            n = [m - (s.kernel - 1) * s.dilation * acc for m in n]
+            total += 2 * s.kernel ** dims * s.nin * s.nout * math.prod(n)
+        elif isinstance(s, ResidSpec):
+            n = [m - 2 * acc for m in n]
+            total += 2 * 3 ** dims * s.nin * s.nhidden * math.prod(n)
+            n = [m - 2 * s.dilation * acc for m in n]
+            total += 2 * 3 ** dims * s.nhidden * s.nout * math.prod(n)
+            if s.nin != s.nout:
+                total += 2 * s.nin * s.nout * math.prod(n)
+        elif isinstance(s, PoolSpec):
+            n = [m + 2 * s.padding * acc - (s.kernel - 1) * acc for m in n]
+        else:
+            continue
+        acc *= s.stride
+    return total + 2 * spec.latent_dim * math.prod(n)
+
+
+def validation_lines(text):
+    """{radius: (auprc, rmse, recall, targets)} of extract's '# radius=' lines."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("# radius="):
+            f = dict(kv.split("=") for kv in line[2:].split(", "))
+            out[int(f["radius"])] = (float(f["auprc"]), float(f["rmse"]), int(f["recall"]),
+                                     int(f["targets"]))
+    return out
+
+
+def compare_files(a_path, b_path, tol, tag):
+    """Two pick files of the same format token by token: numbers with a
+    '.' or an exponent (the scores) within ``tol`` x max(1, |b|), every
+    other token equal. Returns the largest score difference."""
+    import re
+
+    with open(a_path) as f, open(b_path) as g:
+        a, b = f.read(), g.read()
+    split = re.compile(r"([\t,:{}\"\n\[\] ]+)")
+    ta, tb = split.split(a), split.split(b)
+    if len(ta) != len(tb):
+        fail(f"{tag}: {len(ta)} tokens against {len(tb)}")
+    worst = 0.0
+    for x, y in zip(ta, tb):
+        if x == y:
+            continue
+        try:
+            if not any(c in y for c in ".eE"):
+                raise ValueError
+            d = abs(float(x) - float(y)) / max(1.0, abs(float(y)))
+        except ValueError:
+            fail(f"{tag}: token {x!r} against {y!r}")
+        worst = max(worst, d)
+        if d > tol:
+            fail(f"{tag}: score {x} against {y}")
+    return worst
+
+
+def run_extract_targets(workdir: str, files):
+    """Phase 11: ``extract -m resnet8_u32 --targets`` with the CLI's radius
+    grid (5..100 step 5) over the training phase's 16 normalized 512^2
+    micrographs, every planted particle a target; then ``-r <found>
+    --only-validate``; card against CPU at four radii; ``--per-micrograph``
+    in the five formats and ``--patch-size 128``, card against CPU or
+    whole-image scoring. Returns the disk_max launches of the grid run and
+    the r = 100 kernel timing."""
+    import torch
+
+    from topaz_tpu_torch import extract as ex
+    from topaz_tpu_torch.cli.main import main as cli
+    from topaz_tpu_torch.io.coordinates import read_coordinates
+    from topaz_tpu_torch.ops import disk_max as dm
+    from topaz_tpu_torch.ops import nms
+
+    proc = os.path.join(workdir, "train_proc")
+    paths = sorted(os.path.join(proc, n) for n in os.listdir(proc) if n.endswith(".mrc"))
+    targets = files["all_targets"]
+    table = read_coordinates(targets)
+    print(f"# extract_targets: {len(paths)} micrographs, {len(table)} targets")
+
+    # one record a radius, through the module's own entry points
+    records, match_s = [], [0.0]
+    auprc_fn, match_fn = ex.extract_auprc, ex.match_coordinates
+
+    def timed_match(*a, **k):
+        t0 = time.perf_counter()
+        out = match_fn(*a, **k)
+        match_s[0] += time.perf_counter() - t0
+        return out
+
+    def recorded(targets_, scores, radius, *a, **k):
+        torch.cuda.synchronize()
+        launches, rounds, matching = dm.launches, nms.rounds, match_s[0]
+        t0 = time.perf_counter()
+        out = auprc_fn(targets_, scores, radius, *a, **k)
+        torch.cuda.synchronize()
+        records.append({"radius": radius, "ms": (time.perf_counter() - t0) * 1e3,
+                        "match_ms": (match_s[0] - matching) * 1e3,
+                        "launches": dm.launches - launches, "rounds": nms.rounds - rounds,
+                        "devices": sorted({str(s.device) for s in scores.values()}),
+                        "auprc": out[0], "rmse": out[1], "recall": out[2], "targets": out[3]})
+        return out
+
+    ex.extract_auprc, ex.match_coordinates = recorded, timed_match
+    try:
+        picks = os.path.join(workdir, "picks_targets.txt")
+        dm.launches = nms.rounds = nms.uploads = 0
+        t0 = time.perf_counter()
+        text, err = cli_captured(["extract", "-m", "resnet8_u32", "-t", str(THRESHOLD),
+                                  "--targets", targets, "-o", picks, "-d", "0"] + paths)
+        wall = time.perf_counter() - t0
+        launches, map_uploads = dm.launches, nms.uploads
+        grid = list(records)
+        records.clear()
+        found = max(grid, key=lambda r: (r["auprc"], -r["radius"]))["radius"]
+        val_out = os.path.join(workdir, "picks_validate.txt")
+        text_v, _ = cli_captured(["extract", "-m", "resnet8_u32", "-t", str(THRESHOLD),
+                                  "--targets", targets, "-r", str(found), "--only-validate",
+                                  "-o", val_out, "-d", "0"] + paths)
+    finally:
+        ex.extract_auprc, ex.match_coordinates = auprc_fn, match_fn
+
+    for r in grid:
+        print(f"# extract_targets r={r['radius']:3d}: auprc {r['auprc']:.6f}, rmse "
+              f"{r['rmse']:.4f}, recall {r['recall']}/{r['targets']}, wall {r['ms']:.3f} ms "
+              f"(matching {r['match_ms']:.3f} ms), greedy rounds {r['rounds']}, disk_max "
+              f"launches {r['launches']}")
+    total_ms = sum(r["ms"] for r in grid)
+    print(f"# extract_targets: grid of {len(grid)} radii {total_ms:.3f} ms (matching "
+          f"{sum(r['match_ms'] for r in grid):.3f} ms); CLI wall {wall:.3f} s; found radius "
+          f"{found}; disk_max launches {launches}; score maps uploaded again by NMS "
+          f"{map_uploads}")
+    lines = validation_lines(text)
+    if [r["radius"] for r in grid] != list(range(5, 101, 5)) or sorted(lines) != list(
+            range(5, 101, 5)):
+        fail(f"extract_targets: radii run {[r['radius'] for r in grid]}, lines {sorted(lines)}")
+    card = str(ex.resolve_device(0))
+    for r in grid:
+        if r["rounds"] < 1 or r["launches"] != 3 * r["rounds"] or r["devices"] != [card]:
+            fail(f"extract_targets r={r['radius']}: {r['launches']} disk_max launches for "
+                 f"{r['rounds']} rounds, maps on {r['devices']}")
+        if r["targets"] != len(table) or not 0 <= r["auprc"] <= 1:
+            fail(f"extract_targets r={r['radius']}: {r}")
+    if map_uploads:
+        fail(f"extract_targets: NMS uploaded {map_uploads} score maps again")
+    if f"Optimal radius found: {found} " not in err:
+        fail(f"extract_targets: the CLI did not report radius {found}:\n{err[-500:]}")
+    grid_picks = read_table(picks)
+    if sum(len(v) for v in grid_picks.values()) < len(paths):
+        fail(f"extract_targets: {sum(len(v) for v in grid_picks.values())} picks at r={found}")
+    val = validation_lines(text_v)
+    at_found = next(r for r in grid if r["radius"] == found)
+    if list(val) != [found] or abs(val[found][0] - at_found["auprc"]) > 1e-3 or os.path.exists(
+            val_out):
+        fail(f"extract_targets --only-validate: lines {val}, grid {at_found}")
+
+    # the grid's last radius, 100, on the kernel's global route, at the maps' shape
+    r100 = time_disk_max((SIZE // 8, SIZE // 8), torch.Generator(device="cuda").manual_seed(SEED),
+                         r=100, calls=20)
+
+    # card against CPU on 4 micrographs at 4 radii
+    some = paths[:4]
+    maps = {dev: dict((ex.image_name(p), s) for p, s in ex.score_images(
+        "resnet8_u32", some, device=dev)) for dev in ("cuda", "cpu")}
+    score_err = max(float(((maps["cuda"][n].cpu() - maps["cpu"][n]).abs()
+                           / maps["cpu"][n].abs().clamp(min=1)).max()) for n in maps["cpu"])
+    print(f"# extract_targets card vs cpu, {len(some)} score maps: max diff {score_err:.3e} x "
+          f"max(1, |score|)")
+    if score_err > PIPELINE_TOL:
+        fail(f"extract_targets card vs cpu: scores differ by {score_err}")
+    for r in (5, 15, 50, 100):
+        t0 = time.perf_counter()
+        card = ex.extract_auprc(table, maps["cuda"], r, THRESHOLD, device="cuda")
+        t1 = time.perf_counter()
+        cpu = ex.extract_auprc(table, maps["cpu"], r, THRESHOLD, device="cpu")
+        t2 = time.perf_counter()
+        err = 0.0
+        for n in maps["cpu"]:
+            a = picks_of(*nms.non_maximum_suppression(maps["cuda"][n], r, THRESHOLD, "cuda"))
+            b = picks_of(*nms.non_maximum_suppression(maps["cpu"][n], r, THRESHOLD, "cpu"))
+            err = max(err, compare_picks(a, b, tie=PIPELINE_TOL, relative=True, radius=r))
+        print(f"# extract_targets card vs cpu r={r}: auprc {card[0]:.6f} / {cpu[0]:.6f}, recall "
+              f"{card[2]} / {cpu[2]}, matched pick scores max diff {err:.3e} x max(1, |score|); "
+              f"{(t1 - t0) * 1e3:.3f} / {(t2 - t1) * 1e3:.3f} ms")
+        if abs(card[0] - cpu[0]) > 1e-3 or err > PIPELINE_TOL:
+            fail(f"extract_targets card vs cpu r={r}: auprc {card[0]} / {cpu[0]}, scores {err}")
+
+    # --per-micrograph in every format, card against CPU
+    worst = 0.0
+    for fmt in ("coord", "star", "box", "json", "csv"):
+        for device in ("0", "cpu"):
+            out = os.path.join(workdir, f"per_micrograph_{device}", fmt)
+            os.makedirs(out)
+            cli(["extract", "-m", "resnet8_u32", "-t", str(THRESHOLD), "-r", str(found),
+                 "--per-micrograph", "--suffix", "_topaz", "--format", fmt, "-o", out,
+                 "-d", device] + some)
+        for p in some:
+            name = f"{ex.image_name(p)}_topaz.{fmt}"
+            worst = max(worst, compare_files(
+                os.path.join(workdir, "per_micrograph_0", fmt, name),
+                os.path.join(workdir, "per_micrograph_cpu", fmt, name), PIPELINE_TOL,
+                f"--per-micrograph {name}"))
+    print(f"# extract_targets --per-micrograph coord/star/box/json/csv, {len(some)} files each: "
+          f"card equal to cpu but the scores, max diff {worst:.3e} x max(1, |score|)")
+
+    # --patch-size 128 against whole-image scoring on the card
+    patched = dict((ex.image_name(p), s) for p, s in ex.score_images(
+        "resnet8_u32", some, patch_size=128, device="cuda"))
+    patch_err = max(float(((patched[n] - maps["cuda"][n]).abs()
+                           / maps["cuda"][n].abs().clamp(min=1)).max()) for n in patched)
+    out = os.path.join(workdir, "picks_p128.txt")
+    t0 = time.perf_counter()
+    cli(["extract", "-m", "resnet8_u32", "-t", str(THRESHOLD), "-r", str(found), "-p", "128",
+         "-o", out, "-d", "0"] + paths)
+    dt = time.perf_counter() - t0
+    p128 = read_table(out)
+    err = max(compare_picks(p128.get(n, {}), grid_picks.get(n, {}), tie=PIPELINE_TOL,
+                            relative=True, radius=found, labels=("-p 128", "whole"))
+              for n in set(p128) | set(grid_picks))
+    print(f"# extract_targets -p 128: score maps against whole-image scoring max diff "
+          f"{patch_err:.3e} x max(1, |score|); CLI on {len(paths)} micrographs {dt:.3f} s, "
+          f"matched pick scores max diff {err:.3e}")
+    if patch_err > PIPELINE_TOL or err > PIPELINE_TOL:
+        fail(f"extract_targets -p 128: maps {patch_err}, picks {err}")
+    return launches, {"r": 100, "shape": [SIZE // 8, SIZE // 8], **r100}
+
+
+def run_extract3d(workdir: str):
+    """Phase 12: a 3D resnet8 at units 32 (random weights from a seed) saved
+    as .npz and run by ``extract --dims 3`` on a 192 x 384 x 384 tomogram
+    of planted blobs: dense scoring (32 tiles of 166^3) alone against its
+    FLOP bound, the sphere-max NMS alone, the CLI; card against CPU on one
+    tile's volume, ``--targets --only-validate`` included. Returns the
+    disk_max launches of the phase (the 3D path has no TPU kernel)."""
+    import numpy as np
+    import torch
+
+    from topaz_tpu_torch import extract as ex
+    from topaz_tpu_torch.cli.main import main as cli
+    from topaz_tpu_torch.io import mrc
+    from topaz_tpu_torch.models.factory import new_picker, save_picker
+    from topaz_tpu_torch.models.tiling import classify_patches_3d
+    from topaz_tpu_torch.ops import disk_max as dm
+    from topaz_tpu_torch.ops import nms
+
+    (tomo, _), centers = write_tomograms(workdir, TOMO_SHAPE, "pick3d")
+    model = new_picker("resnet8", units=32, dims=3, seed=SEED, device="cuda")
+    ckpt = os.path.join(workdir, "picker3d.npz")
+    save_picker(ckpt, model)
+    dm.launches = 0
+
+    vol = mrc.read(tomo)[0]
+    tile = 96
+    window = tile + 2 * (model.spec.width // 2)
+    tiles = math.prod(-(-n // tile) for n in vol.shape)
+    flops = tiles * picker_dense_flops(model.spec, (window,) * 3)
+    bound_ms = flops / F32_OPS_PER_S * 1e3
+    classify_patches_3d(model, vol[:tile, :tile, :tile])  # cuDNN's first call at this shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    score = classify_patches_3d(model, vol)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"# extract3d dense scoring {TOMO_SHAPE} ({tiles} tiles of {window}^3, batch 1): wall "
+          f"{wall_ms:.3f} ms, device {device_ms:.3f} ms (CUDA events); bound {bound_ms:.3f} ms "
+          f"({flops / 1e12:.4f} TFLOP at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s), "
+          f"{bound_ms / device_ms:.3f} of it; peak memory {peak / 2**30:.3f} GiB")
+    if tuple(score.shape) != vol.shape or not bool(torch.isfinite(score).all()):
+        fail(f"extract3d: score map {tuple(score.shape)}, finite {bool(torch.isfinite(score).all())}")
+
+    # a threshold that keeps the top 1/1000 of the voxels active
+    threshold = float(torch.topk(score.reshape(-1), score.numel() // 1000).values[-1])
+    rounds = nms.rounds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s, c = nms.non_maximum_suppression_3d(score, 8, threshold=threshold, device="cuda")
+    nms_ms = (time.perf_counter() - t0) * 1e3
+    print(f"# extract3d sphere-max NMS r=8 alone: {nms_ms:.3f} ms, {nms.rounds - rounds} greedy "
+          f"rounds, {len(s)} picks above {threshold!r}")
+
+    picks = os.path.join(workdir, "picks3d.txt")
+    t0 = time.perf_counter()
+    cli(["extract", "--dims", "3", "-m", ckpt, "-r", "8", "-t", repr(threshold), "-o", picks,
+         "-d", "0", tomo])
+    dt = time.perf_counter() - t0
+    with open(picks) as f:
+        header = next(f).rstrip("\n").split("\t")
+        rows = [line.rstrip("\n").split("\t") for line in f]
+    got = {tuple(int(v) for v in r[1:4]): float(r[4]) for r in rows}
+    err = compare_picks(got, picks_of(s, c), tie=PIPELINE_TOL, relative=True, radius=8,
+                        threshold=threshold, labels=("CLI", "library"))
+    print(f"# extract3d: extract --dims 3 -r 8 CLI {dt:.3f} s, {len(rows)} picks; against the "
+          f"library run max score diff {err:.3e}")
+    in_range = all(0 <= x < vol.shape[2] and 0 <= y < vol.shape[1] and 0 <= z < vol.shape[0]
+                   for x, y, z in got)
+    if (header != ["image_name", "x_coord", "y_coord", "z_coord", "score"] or not rows
+            or not in_range or not all(math.isfinite(v) for v in got.values())):
+        fail(f"extract3d: header {header}, {len(rows)} picks, coordinates in range {in_range}")
+
+    # card against CPU on one tile's volume
+    crop = os.path.join(workdir, "crop.mrc")
+    mrc.write(crop, np.ascontiguousarray(vol[:48, :96, :96]))
+    crop_targets = os.path.join(workdir, "crop_targets.txt")
+    with open(crop_targets, "w") as f:
+        print("image_name\tx_coord\ty_coord\tz_coord", file=f)
+        for z, y, x in centers:
+            if z < 48 and y < 96 and x < 96:
+                print(f"crop\t{x}\t{y}\t{z}", file=f)
+    maps, vals = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        maps[device] = next(ex.score_images(ckpt, [crop], device=device))[1]
+        text, _ = cli_captured(["extract", "--dims", "3", "-m", ckpt, "-r", "8", "-t",
+                                repr(threshold), "--targets", crop_targets, "--only-validate",
+                                "-d", "0" if device == "cuda" else "cpu", crop])
+        vals[device] = validation_lines(text)[8]
+        print(f"# extract3d card vs cpu: {device} scoring and --only-validate "
+              f"{time.perf_counter() - t0:.3f} s")
+    a, b = maps["cuda"].cpu(), maps["cpu"]
+    score_err = float(((a - b).abs() / b.abs().clamp(min=1)).max())
+    pick_err = compare_picks(
+        picks_of(*nms.non_maximum_suppression_3d(maps["cuda"], 8, threshold=threshold)),
+        picks_of(*nms.non_maximum_suppression_3d(b, 8, threshold=threshold, device="cpu")),
+        tie=PIPELINE_TOL, relative=True, radius=8, threshold=threshold)
+    print(f"# extract3d card vs cpu, 48 x 96 x 96: scores max diff {score_err:.3e} x max(1, "
+          f"|score|), matched picks {pick_err:.3e}; --targets --only-validate auprc "
+          f"{vals['cuda'][0]:.6f} / {vals['cpu'][0]:.6f} ({vals['cpu'][3]} targets)")
+    if score_err > PIPELINE_TOL or pick_err > PIPELINE_TOL or abs(
+            vals["cuda"][0] - vals["cpu"][0]) > 1e-3 or vals["cuda"][3] < 1:
+        fail(f"extract3d card vs cpu: scores {score_err}, picks {pick_err}, validation {vals}")
+    if dm.launches:
+        fail(f"extract3d launched disk_max {dm.launches} times (the 3D path has no TPU kernel)")
+    return dm.launches
+
+
+# the phases after the kernel check, in order; ``--only`` runs some of them
+PHASES = ("slice", "denoise", "pipeline", "training", "extract_targets", "denoise_train",
+          "denoise3d", "extract3d")
+
+
 def main() -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
+    parser.add_argument("--only", nargs="+", choices=PHASES, default=PHASES,
+                        help="run only these phases after the kernel check (default: all; "
+                             "the result line needs all)")
+    only = set(parser.parse_args().only)
+
+    def want(phase):
+        return phase in only
+
     sys.path.insert(0, REPO)
     try:
         import torch
@@ -1406,54 +1813,80 @@ def main() -> None:
     print(f"# kernels built in {time.perf_counter() - t:.2f} s")
 
     err, single, batched = check_disk_max()
-    with tempfile.TemporaryDirectory() as workdir:
-        extract_launches = run_slice(workdir)
-        run_denoise(workdir)
-    with tempfile.TemporaryDirectory() as workdir:
-        pipeline_launches, paths, dev = run_pipeline(workdir)
-        hold_pipeline(paths, dev)
-        run_batched_cli(workdir, paths)
-    with tempfile.TemporaryDirectory() as workdir:
-        t = time.perf_counter()
-        files = write_training_set(workdir)
-        train_launches, train_extract_launches, argv, prefix, epoch_s = run_training(
-            workdir, files)
-        time_training(workdir, files, argv, prefix, epoch_s)
-        train_bn(workdir, files)
-        train_card_vs_cpu(workdir, files)
-        print(f"# training phase: {time.perf_counter() - t:.1f} s")
-    with tempfile.TemporaryDirectory() as workdir:
-        t = time.perf_counter()
-        denoise_train_launches = run_denoise_train(workdir)
-        print(f"# denoiser training phase: {time.perf_counter() - t:.1f} s")
-    with tempfile.TemporaryDirectory() as workdir:
-        t = time.perf_counter()
-        denoise3d_launches = run_denoise3d(workdir)
-        print(f"# denoise3d phase: {time.perf_counter() - t:.1f} s")
+    launches = dict.fromkeys(PHASES + ("train_extract",))
+    r100 = None
+    if want("slice") or want("denoise"):
+        with tempfile.TemporaryDirectory() as workdir:
+            launches["slice"] = run_slice(workdir)
+            if want("denoise"):
+                run_denoise(workdir)
+                launches["denoise"] = 0
+    if want("pipeline"):
+        with tempfile.TemporaryDirectory() as workdir:
+            launches["pipeline"], paths, dev = run_pipeline(workdir)
+            hold_pipeline(paths, dev)
+            run_batched_cli(workdir, paths)
+    if want("training") or want("extract_targets"):
+        with tempfile.TemporaryDirectory() as workdir:
+            files = write_training_set(workdir)
+            if want("training"):
+                t = time.perf_counter()
+                launches["training"], launches["train_extract"], argv, prefix, epoch_s = (
+                    run_training(workdir, files))
+                time_training(workdir, files, argv, prefix, epoch_s)
+                train_bn(workdir, files)
+                train_card_vs_cpu(workdir, files)
+                print(f"# training phase: {time.perf_counter() - t:.1f} s")
+            if want("extract_targets"):
+                t = time.perf_counter()
+                launches["extract_targets"], r100 = run_extract_targets(workdir, files)
+                print(f"# extract_targets phase: {time.perf_counter() - t:.1f} s")
+    if want("denoise_train"):
+        with tempfile.TemporaryDirectory() as workdir:
+            t = time.perf_counter()
+            launches["denoise_train"] = run_denoise_train(workdir)
+            print(f"# denoiser training phase: {time.perf_counter() - t:.1f} s")
+    if want("denoise3d"):
+        with tempfile.TemporaryDirectory() as workdir:
+            t = time.perf_counter()
+            launches["denoise3d"] = run_denoise3d(workdir)
+            print(f"# denoise3d phase: {time.perf_counter() - t:.1f} s")
+    if want("extract3d"):
+        with tempfile.TemporaryDirectory() as workdir:
+            t = time.perf_counter()
+            launches["extract3d"] = run_extract3d(workdir)
+            print(f"# extract3d phase: {time.perf_counter() - t:.1f} s")
     if "jax" in sys.modules or "topaz_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
 
-    # the batched pipeline is the main path of this slice: its launches and
+    # the batched pipeline is the main path of the slices: its launches and
     # the time at its larger bucket's shape lead; extract's single-image
-    # shape keeps its numbers under "single"
+    # shape keeps its numbers under "single", the radius grid's r = 100 (the
+    # kernel's global route) under "r100"
     kernels = [{
         "name": "disk_max", "route": "cuda",
         "source": "topaz_tpu_torch/csrc/disk_max.cu",
         "replaces": "topaz_tpu/ops/nms_pallas.py:35",
-        "launches": pipeline_launches,
-        "launches_by_path": {"pipeline": pipeline_launches, "extract": extract_launches,
-                             "denoise": 0, "train": train_launches,
-                             "train_extract": train_extract_launches,
-                             "denoise_train": denoise_train_launches,
-                             "denoise3d": denoise3d_launches},
+        "launches": launches["pipeline"],
+        "launches_by_path": {"pipeline": launches["pipeline"], "extract": launches["slice"],
+                             "denoise": launches["denoise"], "train": launches["training"],
+                             "train_extract": launches["train_extract"],
+                             "denoise_train": launches["denoise_train"],
+                             "denoise3d": launches["denoise3d"],
+                             "extract_targets": launches["extract_targets"],
+                             "extract3d": launches["extract3d"]},
         "max_abs_err": err, "shape": list(BATCHED_SHAPES[-1]), "r": RADIUS,
         "ms": batched["ms"], "plain_ms": batched["plain_ms"],
         "eager_ms": batched["eager_ms"], "plain_eager_ms": batched["plain_eager_ms"],
         "bound_ms": batched["bound_ms"], "bound_by": batched["bound_by"], "library_ms": None,
         "single": {"shape": [SIZE // 8, SIZE // 8], **single},
+        "r100": r100,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)
+    if only != set(PHASES):
+        print(f"# --only {' '.join(sorted(only))}: a partial run prints no result line")
+        return
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -49,7 +49,8 @@ def test_import_loads_no_jax_nor_jax_package():
     assert n_modules >= 20, out.stdout
     scanned = set(out.stdout.splitlines()[1].split())
     assert {"topaz_tpu_torch.train.denoise_data", "topaz_tpu_torch.cli.commands.denoise3d",
-            "topaz_tpu_torch.denoise", "topaz_tpu_torch.models.denoise_factory"} <= scanned
+            "topaz_tpu_torch.denoise", "topaz_tpu_torch.models.denoise_factory",
+            "topaz_tpu_torch.models.tiling", "topaz_tpu_torch.cli.commands.downsample"} <= scanned
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
@@ -99,10 +100,17 @@ def _entry_points(tmp_path):
     from topaz_tpu_torch.models.factory import new_picker
     from topaz_tpu_torch.training import train_model
     from topaz_tpu_torch.denoise import Denoise, Denoise3D
+    from topaz_tpu_torch.io.image import downsample_file
+    from topaz_tpu_torch.ops.nms import non_maximum_suppression_3d
 
     x = np.random.default_rng(0).normal(size=(32, 32)).astype(np.float32)
     path = str(tmp_path / "a.mrc")
     mrc.write(path, x)
+    vol = str(tmp_path / "v.mrc")
+    mrc.write(vol, np.zeros((8, 8, 8), np.float32))
+    targets = str(tmp_path / "targets.txt")
+    with open(targets, "w") as f:
+        f.write("image_name\tx_coord\ty_coord\na\t3\t4\n")
     return {
         "resolve_device": lambda: resolve_device(),
         "resolve_device_index": lambda: resolve_device(0),
@@ -124,6 +132,22 @@ def _entry_points(tmp_path):
              "-n", "5"])),
         "Denoise3D": lambda: Denoise3D.from_arch("unet-small", nf=4),
         "Denoise_from_arch": lambda: Denoise.from_arch("unet", nf=4),
+        "extract_targets": lambda: extract_particles(
+            [path], "none", -6, None, targets=targets),
+        "extract_only_validate": lambda: extract_particles(
+            [path], "none", -6, 3, targets=targets, only_validate=True),
+        "extract_per_micrograph": lambda: extract_particles(
+            [path], "none", -6, 3, per_micrograph=True, output=str(tmp_path)),
+        "extract_per_micrograph_batched": lambda: extract_particles(
+            [path], "resnet8_u32", -6, 3, batch_size=2, per_micrograph=True,
+            output=str(tmp_path)),
+        "extract_patch_size": lambda: extract_particles(
+            [path], "resnet8_u32", -6, 3, patch_size=16, output=str(tmp_path / "p.txt")),
+        "extract_dims3": lambda: extract_particles(
+            [vol], "none", -6, 3, dims=3, output=str(tmp_path / "p.txt")),
+        "non_maximum_suppression_3d": lambda: non_maximum_suppression_3d(
+            np.zeros((4, 4, 4), np.float32), 1),
+        "downsample_file": lambda: downsample_file(path, 2, str(tmp_path / "d.mrc")),
     }
 
 
@@ -132,7 +156,9 @@ def _entry_points(tmp_path):
     "non_maximum_suppression", "load_picker", "normalize_images",
     "extract_particles", "extract_particles_batched", "MicrographPipeline",
     "normalize_images_batched", "new_picker", "train_model", "Denoise3D",
-    "Denoise_from_arch"])
+    "Denoise_from_arch", "extract_targets", "extract_only_validate",
+    "extract_per_micrograph", "extract_per_micrograph_batched", "extract_patch_size",
+    "extract_dims3", "non_maximum_suppression_3d", "downsample_file"])
 def test_entry_points_raise_without_cuda(tmp_path, monkeypatch, entry):
     from topaz_tpu_torch.device import DeviceUnavailableError
 
@@ -147,4 +173,21 @@ def test_cli_without_cuda_exits_with_an_error(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
         main(["preprocess", "-s", "2", "-o", str(tmp_path), str(tmp_path / "x.mrc")])
+    assert "no CUDA device" in str(e.value.code)
+
+
+@pytest.mark.parametrize("argv", [
+    ["downsample", "-s", "2", "-o", "{d}/y.mrc", "{d}/x.mrc"],
+    ["extract", "-m", "none", "--dims", "3", "-r", "3", "{d}/x.mrc"],
+    ["extract", "-m", "none", "--targets", "{d}/t.txt", "{d}/x.mrc"],
+])
+def test_extract_and_downsample_cli_without_cuda_exit_with_an_error(tmp_path, monkeypatch, argv):
+    from topaz_tpu_torch.cli.main import main
+    from topaz_tpu_torch.io import mrc
+
+    mrc.write(str(tmp_path / "x.mrc"), np.zeros((8, 8), np.float32))
+    (tmp_path / "t.txt").write_text("image_name\tx_coord\ty_coord\nx\t3\t4\n")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        main([a.format(d=tmp_path) for a in argv])
     assert "no CUDA device" in str(e.value.code)

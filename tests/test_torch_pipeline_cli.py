@@ -126,7 +126,7 @@ def test_batched_extract_matches_the_jax_cli(micrographs, tmp_path):
 @pytest.mark.parametrize("argv", [
     ["normalize", "-d", "-2", "--batch-size", "2"],
     ["extract", "-m", "resnet8_u32", "-r", "6", "-d", "-2", "--batch-size", "2"],
-    ["extract", "-m", "resnet8_u32", "-r", "6", "-d", "cpu", "--batch-size", "2",
+    ["extract", "-m", "resnet8_u32", "-r", "6", "-d", "-2", "--batch-size", "2",
      "--per-micrograph"],
 ])
 def test_not_ported_batched_paths_exit_with_an_error(micrographs, tmp_path, argv):

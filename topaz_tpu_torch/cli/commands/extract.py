@@ -1,5 +1,5 @@
-"""topaz extract (topaz/commands/extract.py): the JAX CLI's flags; the
-paths this port does not run yet raise a not-yet-ported error."""
+"""topaz extract (topaz/commands/extract.py): the JAX CLI's flags and
+defaults; ``-d -2`` raises a not-yet-ported error."""
 import argparse
 
 from topaz_tpu_torch.device import parse_device_flag
@@ -44,9 +44,12 @@ def main(args):
 
     extract_particles(
         args.paths, args.model, args.threshold, args.radius,
-        targets=args.targets, patch_size=args.patch_size,
+        targets=args.targets, min_radius=args.min_radius,
+        max_radius=args.max_radius, step=args.step_radius,
+        match_radius=args.assignment_radius, patch_size=args.patch_size,
         batch_size=args.batch_size, only_validate=args.only_validate,
         output=args.output, per_micrograph=args.per_micrograph,
-        up_scale=args.up_scale, down_scale=args.down_scale, dims=args.dims,
-        verbose=args.verbose, device=args.device, skip_errors=args.skip_errors,
+        suffix=args.suffix, out_format=args.format, up_scale=args.up_scale,
+        down_scale=args.down_scale, dims=args.dims, verbose=args.verbose,
+        device=args.device, skip_errors=args.skip_errors,
     )

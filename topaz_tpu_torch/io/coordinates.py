@@ -8,7 +8,9 @@ column, ``image_name``, ``x_coord`` and ``y_coord``, and the optional
 It has what training needs: the rows under a mask (``take``), the rows of
 one image (``for_image``), and the first source of each image
 (``source_by_image``). Reading covers the coord (TSV), STAR, EMAN .box and
-VIA CSV formats; writing covers coord and STAR.
+VIA CSV formats; writing covers those and EMAN2 box-manager JSON, byte for
+byte as the JAX package's pandas writers write them (numbers as numpy
+prints them, so float32 scores keep their shortest form).
 """
 
 from __future__ import annotations
@@ -211,15 +213,63 @@ def read_coordinates(path: str, format: str = "auto") -> Coordinates:
 
 
 def write_tsv(f: IO[str], table: Coordinates, columns: Sequence[str]) -> None:
-    """``columns`` of ``table`` as a tab-separated table with a header."""
+    """``columns`` of ``table`` as a tab-separated table with a header, each
+    value as pandas' ``to_csv`` writes it."""
     print("\t".join(columns), file=f)
-    for row in zip(*(getattr(table, c).tolist() for c in columns)):
+    for row in zip(*(getattr(table, c) for c in columns)):
         print("\t".join(str(v) for v in row), file=f)
 
 
+def coordinates_to_boxes(coords: np.ndarray, box_width: int, box_height: int,
+                         shape=None, invert_y: bool = False) -> np.ndarray:
+    """Center coordinates -> EMAN box rows (x_lower_left, y_lower_left,
+    width, height) (topaz_tpu/io/coordinates.py:127-137)."""
+    x = np.asarray(coords[:, 0])
+    y = np.asarray(coords[:, 1])
+    if invert_y:
+        y = shape[0] - 1 - y
+    w = np.full(len(x), box_width, dtype=np.int32)
+    h = np.full(len(x), box_height, dtype=np.int32)
+    return np.stack([x - w // 2, y - h // 2, w, h], axis=1)
+
+
+def coordinates_to_eman2_json(coords: np.ndarray, shape=None, invert_y: bool = False,
+                              tag: str = "manual") -> List[list]:
+    """Center coordinates -> EMAN2 box-manager entries [x, y, tag]
+    (topaz_tpu/io/coordinates.py:140-148)."""
+    x = np.asarray(coords[:, 0])
+    y = np.asarray(coords[:, 1])
+    if invert_y:
+        y = shape[0] - 1 - y
+    return [[int(xi), int(yi), tag] for xi, yi in zip(x, y)]
+
+
+def write_via_csv(f: IO[str], table: Coordinates) -> None:
+    """Picks as a VIA (VGG annotator) CSV (topaz_tpu/io/coordinates.py:
+    185-210): one row a pick, ``region_count`` the picks of its image and
+    ``region_id`` its rank among them in table order."""
+    names = table.image_name.tolist()
+    counts: Dict[str, int] = {}
+    for name in names:
+        counts[name] = counts.get(name, 0) + 1
+    seen: Dict[str, int] = {}
+    writer = csv.writer(f, lineterminator="\n")
+    writer.writerow(["filename", "file_size", "file_attributes", "region_count",
+                     "region_id", "region_shape_attributes", "region_attributes"])
+    scores = table.score.tolist() if table.score is not None else [None] * len(names)
+    for name, x, y, score in zip(names, table.x_coord.tolist(), table.y_coord.tolist(),
+                                 scores):
+        region_id = seen.get(name, 0)
+        seen[name] = region_id + 1
+        writer.writerow([name + ".png", -1, "{}", counts[name], region_id,
+                         f'{{"name":"point","cx":{x},"cy":{y}}}',
+                         "{}" if score is None else f'{{"score":"{score}"}}'])
+
+
 def write_table(f: IO[str], table: Coordinates, format: str = "coord",
-                image_ext: str = "") -> None:
-    """Write one already-open stream (topaz/utils/files.py:242-268)."""
+                boxsize: int = 0, image_ext: str = "") -> None:
+    """Write one already-open stream (topaz/utils/files.py:242-268,
+    topaz_tpu/io/coordinates.py:287-302)."""
     if format == "coord":
         write_tsv(f, table, [c for c in table.columns if c != "source"])
     elif format == "star":
@@ -230,6 +280,14 @@ def write_table(f: IO[str], table: Coordinates, format: str = "coord",
         out["MicrographName"] = np.array([n + image_ext for n in table.image_name],
                                          dtype=object)
         star.write(out, f)
+    elif format == "box":
+        xy = np.stack([table.x_coord, table.y_coord], axis=1).astype(np.int32)
+        for row in coordinates_to_boxes(xy, boxsize, boxsize):
+            print("\t".join(str(v) for v in row), file=f)
+    elif format == "json":
+        xy = np.stack([table.x_coord, table.y_coord], axis=1).astype(int)
+        json.dump({"boxes": coordinates_to_eman2_json(xy)}, f, indent=0)
+    elif format == "csv":
+        write_via_csv(f, table)
     else:
-        raise NotImplementedError(f"writing {format} coordinates is not yet ported "
-                                  f"to topaz_tpu_torch")
+        raise ValueError(f"unknown coordinate format {format!r}")

@@ -98,5 +98,6 @@ def write(table: Dict[str, np.ndarray], f: IO[str]) -> None:
     names = list(table)
     for i, name in enumerate(names):
         print(f"_rln{name} #{i + 1}", file=f)
-    for row in zip(*(np.asarray(table[n]).tolist() for n in names)):
+    # numpy scalars print as pandas' to_csv prints them (float32 shortest)
+    for row in zip(*(np.asarray(table[n]) for n in names)):
         print("\t".join(str(v) for v in row), file=f)

@@ -7,8 +7,9 @@ read-only; other ``.npz`` checkpoints load the same way. Checkpoints hold
 the JAX package's layout: ``__meta__`` (arch and constructor kwargs),
 ``params:`` with HWIO kernels and ``state:`` with batchnorm running
 statistics. ``picker_from_numpy`` and ``picker_to_numpy`` carry such trees
-into the port's OIHW module and back, so that either package loads the
-other's checkpoints.
+into the port's OIHW module and back (DHWIO <-> OIDHW for 3D pickers), so
+that either package loads the other's checkpoints; ``dims`` travels in the
+meta.
 """
 
 from __future__ import annotations
@@ -57,9 +58,10 @@ def _spec_from_meta(meta: Dict) -> PickerSpec:
 
 
 def _oihw(w) -> torch.Tensor:
-    """HWIO kernel -> OIHW."""
-    return torch.from_numpy(np.array(np.asarray(w).transpose(3, 2, 0, 1),
-                                     dtype=np.float32, order="C"))
+    """HWIO kernel -> OIHW, or DHWIO -> OIDHW."""
+    w = np.asarray(w)
+    axes = (w.ndim - 1, w.ndim - 2) + tuple(range(w.ndim - 2))
+    return torch.from_numpy(np.array(w.transpose(axes), dtype=np.float32, order="C"))
 
 
 def _vec(v) -> torch.Tensor:
@@ -67,8 +69,9 @@ def _vec(v) -> torch.Tensor:
 
 
 def _hwio(w: torch.Tensor) -> np.ndarray:
-    """OIHW kernel -> HWIO."""
-    return np.ascontiguousarray(w.detach().cpu().numpy().transpose(2, 3, 1, 0))
+    """OIHW kernel -> HWIO, or OIDHW -> DHWIO."""
+    axes = tuple(range(2, w.dim())) + (1, 0)
+    return np.ascontiguousarray(w.detach().cpu().numpy().transpose(axes))
 
 
 def _np(v: torch.Tensor) -> np.ndarray:

@@ -11,11 +11,13 @@ Each architecture is a static spec (a tuple of layer descriptors).
     whole micrograph to a per-pixel score map; this is what the reference
     does by mutating modules at run time (fill()/unfill(),
     topaz/model/features/resnet.py:31-44,87-99,153-176).
-Layout is NCHW with OIHW kernels; all convolutions are VALID.
+Layout is NCHW with OIHW kernels in 2D, NCDHW with OIDHW kernels in 3D
+(tomograms); all convolutions are VALID.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 from typing import Sequence, Tuple, Union
@@ -108,13 +110,15 @@ def total_stride(specs: Sequence[LayerSpec]) -> int:
 
 def conv_nd(x: torch.Tensor, w: torch.Tensor, b=None, stride: int = 1,
             dilation: int = 1) -> torch.Tensor:
-    """VALID 2D convolution (cross-correlation), NCHW input, OIHW kernel."""
-    return F.conv2d(x, w, b, stride=stride, dilation=dilation)
+    """VALID convolution (cross-correlation): 2D for an OIHW kernel on NCHW,
+    3D for an OIDHW kernel on NCDHW."""
+    conv = F.conv3d if w.dim() == 5 else F.conv2d
+    return conv(x, w, b, stride=stride, dilation=dilation)
 
 
 def pool_nd(x: torch.Tensor, kernel: int, stride: int = 1, dilation: int = 1,
-            kind: str = "max", padding: int = 0) -> torch.Tensor:
-    """Max or average pooling over the last two axes, with symmetric
+            kind: str = "max", padding: int = 0, dims: int = 2) -> torch.Tensor:
+    """Max or average pooling over the last ``dims`` axes, with symmetric
     padding scaled by the dilation as the kernel is.
 
     avg follows torch AvgPool defaults (count_include_pad=True: padded zeros
@@ -123,25 +127,21 @@ def pool_nd(x: torch.Tensor, kernel: int, stride: int = 1, dilation: int = 1,
     kernel."""
     pad = padding * dilation
     if pad:
-        x = F.pad(x, (pad, pad, pad, pad),
-                  value=float("-inf") if kind == "max" else 0.0)
-    H, W = x.shape[-2:]
+        x = F.pad(x, (pad, pad) * dims, value=float("-inf") if kind == "max" else 0.0)
     span = (kernel - 1) * dilation + 1
-    Ho = (H - span) // stride + 1
-    Wo = (W - span) // stride + 1
+    outs = [(n - span) // stride + 1 for n in x.shape[-dims:]]
     out = None
-    for i in range(kernel):
-        for j in range(kernel):
-            tap = x[..., i * dilation:i * dilation + (Ho - 1) * stride + 1:stride,
-                    j * dilation:j * dilation + (Wo - 1) * stride + 1:stride]
-            if out is None:
-                out = tap
-            elif kind == "avg":
-                out = out + tap
-            else:
-                out = torch.maximum(out, tap)
+    for taps in itertools.product(range(kernel), repeat=dims):
+        tap = x[(Ellipsis,) + tuple(slice(t * dilation, t * dilation + (n - 1) * stride + 1,
+                                          stride) for t, n in zip(taps, outs))]
+        if out is None:
+            out = tap
+        elif kind == "avg":
+            out = out + tap
+        else:
+            out = torch.maximum(out, tap)
     if kind == "avg":
-        out = out / float(kernel ** 2)
+        out = out / float(kernel ** dims)
     return out
 
 
@@ -161,9 +161,9 @@ def activate(x: torch.Tensor, activation: str, prelu=None) -> torch.Tensor:
 
 def batch_norm_apply(x: torch.Tensor, scale, bias, mean, var,
                      eps: float = 1e-5) -> torch.Tensor:
-    """Eval-mode batchnorm over the channel axis (NCHW) with the running
+    """Eval-mode batchnorm over the channel axis (NC...) with the running
     statistics."""
-    shape = (1, -1, 1, 1)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
     return ((x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + eps)
             * scale.reshape(shape) + bias.reshape(shape))
 
@@ -194,14 +194,18 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.T
 class Layer(nn.Module):
     """Parameters of one layer, named as in the JAX parameter tree
     (``conv_w``, ``conv0_b``, ``proj_w``, ...; batchnorm as ``bn_scale`` or
-    ``bn0_mean``), with OIHW kernels. Created empty; the factory fills it."""
+    ``bn0_mean``), with OIHW kernels (OIDHW when ``dims`` is 3). Created
+    empty; the factory fills it."""
 
-    def __init__(self, spec: LayerSpec):
+    def __init__(self, spec: LayerSpec, dims: int = 2):
         super().__init__()
+        if dims not in (2, 3):
+            raise ValueError(f"dims must be 2 or 3, got {dims}")
         self.spec = spec
+        self.dims = dims
 
         def conv(name, nin, nout, k, bias):
-            setattr(self, name + "_w", nn.Parameter(torch.zeros(nout, nin, k, k)))
+            setattr(self, name + "_w", nn.Parameter(torch.zeros((nout, nin) + (k,) * dims)))
             if bias:
                 setattr(self, name + "_b", nn.Parameter(torch.zeros(nout)))
 
@@ -256,7 +260,7 @@ def apply_layer(spec: LayerSpec, layer: Layer, x: torch.Tensor, acc_stride: int,
 
     if isinstance(spec, PoolSpec):
         y = pool_nd(x, spec.kernel, stride=stride, dilation=base_dil,
-                    kind=spec.kind, padding=spec.padding)
+                    kind=spec.kind, padding=spec.padding, dims=layer.dims)
         return y, acc_stride * spec.stride
 
     if isinstance(spec, ConvSpec):
@@ -278,11 +282,11 @@ def apply_layer(spec: LayerSpec, layer: Layer, x: torch.Tensor, acc_stride: int,
         # skip path: crop the input to align with the valid-conv output
         # (resnet.py:185-197), then project or subsample it by the stride
         edge = d0 + d1
-        xc = x[..., edge:-edge, edge:-edge]
+        xc = x[(Ellipsis,) + (slice(edge, -edge),) * layer.dims]
         if hasattr(layer, "proj_w"):
             xc = conv_nd(xc, layer.proj_w, stride=stride)
         elif stride > 1:
-            xc = xc[..., ::stride, ::stride]
+            xc = xc[(Ellipsis,) + (slice(None, None, stride),) * layer.dims]
         y = y + xc
         if spec.bn:
             y = _bn(layer, "bn1", y, train)
@@ -294,7 +298,7 @@ def apply_layer(spec: LayerSpec, layer: Layer, x: torch.Tensor, acc_stride: int,
 def init_layer_(layer: Layer, generator: torch.Generator) -> None:
     """Draw one layer's kernels and biases at the JAX package's scales
     (topaz_tpu/models/layers.py:309-363, torch's conv default):
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in = nin k^2, from
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in = nin k^dims, from
     ``generator``. Batchnorm (scale 1, bias 0, running mean 0, var 1) and
     PReLU (0.25) keep the values the layer is built with."""
     with torch.no_grad():

@@ -7,8 +7,9 @@ Architecture registry mirroring the reference's model zoo:
     topaz/model/factory.py:15-25)
 ``Picker`` holds one weight set for both forms: the dense score-map form
 (an (N, H, W) micrograph batch in, an (N, H, W) score map out, zero-padded
-by width//2 first), and the strided form that training runs on crops of the
-receptive field, one logit a crop. ``init_picker`` draws fresh weights.
+by width//2 first; (N, D, H, W) tomograms when ``spec.dims`` is 3), and the
+strided form that training runs on crops of the receptive field, one logit
+a crop. ``init_picker`` draws fresh weights.
 """
 
 from __future__ import annotations
@@ -244,18 +245,16 @@ class Picker(nn.Module):
 
     def __init__(self, spec: PickerSpec):
         super().__init__()
-        if spec.dims != 2:
-            raise NotImplementedError(
-                "3D pickers (--dims 3) are not yet ported to topaz_tpu_torch")
         self.spec = spec
-        self.layers = nn.ModuleList(Layer(s) for s in spec.features)
-        self.classifier_w = nn.Parameter(torch.zeros(1, spec.latent_dim, 1, 1))
+        self.layers = nn.ModuleList(Layer(s, spec.dims) for s in spec.features)
+        self.classifier_w = nn.Parameter(torch.zeros((1, spec.latent_dim) + (1,) * spec.dims))
         self.classifier_b = nn.Parameter(torch.zeros(1))
 
     def forward(self, x: torch.Tensor, dense: bool = True, pad: Optional[bool] = None,
                 train: bool = False, generator: Optional[torch.Generator] = None,
                 return_latent: bool = False):
-        """(N, H, W) images -> (N, H', W') scores (logits).
+        """(N, H, W) images -> (N, H', W') scores (logits); (N, D, H, W)
+        volumes -> (N, D', H', W') for a 3D picker.
 
         ``dense``: the filled form (stride-1 dilated convolutions); with
         ``pad`` (default: ``dense``) the input is zero-padded by width//2 so
@@ -269,7 +268,7 @@ class Picker(nn.Module):
         x = x[:, None]
         if pad:
             p = self.spec.width // 2
-            x = F.pad(x, (p, p, p, p))
+            x = F.pad(x, (p, p) * self.spec.dims)
         acc = 1
         for layer in self.layers:
             x, acc = layer(x, acc, dense=dense, train=train, generator=generator)

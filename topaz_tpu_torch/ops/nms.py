@@ -1,15 +1,19 @@
 """Greedy non-maximum suppression in parallel rounds.
 
-Port of topaz_tpu/ops/nms.py (2D). Per round, every still-active pixel that
-is the strict maximum of its radius-r disk among active pixels is accepted,
-then the disks of all accepted peaks are suppressed. The fixed point equals
-the sequential greedy of the reference (topaz/algorithms.py:25-63); ties
-inside a disk go to the larger linear index, matching
-``np.argsort(A)[::-1]`` order.
+Port of topaz_tpu/ops/nms.py (2D and 3D). Per round, every still-active
+pixel that is the strict maximum of its radius-r disk (sphere, in 3D) among
+active pixels is accepted, then the disks of all accepted peaks are
+suppressed. The fixed point equals the sequential greedy of the reference
+(topaz/algorithms.py:25-103); ties inside a disk go to the larger in-plane
+linear index, matching ``np.argsort(A)[::-1]`` order in 2D and the JAX
+package's rule in 3D.
 
-Each round applies the disk max-filter three times. On the card that filter
-is the CUDA kernel of ops/disk_max.py; ``disk_max`` here is its plain
-version, used for tensors on the CPU and as the kernel's reference.
+Each round applies the max-filter three times. In 2D on the card that
+filter is the CUDA kernel of ops/disk_max.py; ``disk_max`` here is its
+plain version, used for tensors on the CPU and as the kernel's reference.
+The 3D ``sphere_max`` was XLA ops on the TPU, not a Pallas kernel, and is
+plain PyTorch on every device. The accepted peaks are gathered and sorted
+on the score map's device; only they come back to the host.
 """
 
 from __future__ import annotations
@@ -22,6 +26,12 @@ import torch
 
 NEG = float("-inf")
 INT_NEG = -(2**31)
+
+# greedy rounds run in this process, and score maps that the
+# ``non_maximum_suppression*`` entry points had to move to their device;
+# callers may reset both to 0
+rounds = 0
+uploads = 0
 
 
 def _chords_2d(r: int):
@@ -66,16 +76,20 @@ def disk_max(x: torch.Tensor, r: int, init=NEG) -> torch.Tensor:
 
 def _greedy_rounds(score: torch.Tensor, threshold: float, max_filter) -> torch.Tensor:
     """Run parallel-greedy NMS rounds; returns the accepted-peak mask.
-    Supports (H, W) and batched (..., H, W) inputs. The loop ends when no
-    pixel is active, checked on the host once a round."""
+    Supports (H, W), batched (..., H, W) and (D, H, W) inputs; the
+    tie-break index is the in-plane one, ``arange(H * W)`` broadcast over
+    the leading axes, in 3D too (topaz_tpu/ops/nms.py:133-134). The loop
+    ends when no pixel is active, checked on the host once a round."""
     H, W = score.shape[-2:]
     lin = torch.arange(H * W, dtype=torch.int32, device=score.device)
     lin = lin.reshape(H, W).expand(score.shape)
     neg = torch.tensor(NEG, dtype=score.dtype, device=score.device)
     int_neg = torch.tensor(INT_NEG, dtype=torch.int32, device=score.device)
+    global rounds
     active = score > threshold
     accepted = torch.zeros_like(active)
     while bool(active.any()):
+        rounds += 1
         masked = torch.where(active, score, neg).contiguous()
         dmax = max_filter(masked, NEG)
         is_max = active & (masked >= dmax)
@@ -145,14 +159,31 @@ def nms_topk_batched(scores: torch.Tensor, r: int, threshold: float, k: int):
     return _topk_table(scores, mask, k)
 
 
-def _mask_to_sorted(score: np.ndarray, mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Host-side: enumerate accepted peaks sorted by descending score with
-    descending-index tie-break (reference emission order, algorithms.py:36)."""
-    flat_idx = np.flatnonzero(mask.ravel())
-    vals = score.ravel()[flat_idx]
-    order = np.lexsort((-flat_idx, -vals))
-    flat_idx = flat_idx[order]
-    return vals[order].astype(np.float32), flat_idx
+def _sorted_peaks(score: torch.Tensor, mask: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+    """(scores float32, flat indices) of the accepted peaks, by descending
+    score and, among equal scores, descending index (the reference's
+    emission order, algorithms.py:36). Gathered and sorted on the map's
+    device; only the peaks come to the host."""
+    idx = torch.nonzero(mask.reshape(-1)).reshape(-1).flip(0)
+    vals = score.reshape(-1)[idx]
+    order = torch.sort(vals, descending=True, stable=True).indices
+    return vals[order].cpu().numpy(), idx[order].cpu().numpy()
+
+
+def _score_map(x, device) -> torch.Tensor:
+    """``x`` as a contiguous float32 tensor on ``device``; counts an upload
+    when it was not already there."""
+    from topaz_tpu_torch.device import resolve_device
+
+    global uploads
+    device = resolve_device(device)
+    there = (isinstance(x, torch.Tensor) and x.dtype == torch.float32
+             and x.device.type == device.type
+             and device.index in (None, x.device.index))
+    if not there:
+        uploads += 1
+        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    return x.contiguous()
 
 
 def non_maximum_suppression(
@@ -160,12 +191,74 @@ def non_maximum_suppression(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """2D NMS with the reference's interface: returns (scores, coords[x, y])
     sorted by descending score (topaz/algorithms.py:25-63). ``x`` is an
-    (H, W) array or tensor; the rounds run on ``device``."""
-    from topaz_tpu_torch.device import resolve_device
-
-    x = torch.as_tensor(x, dtype=torch.float32, device=resolve_device(device))
+    (H, W) array or tensor; the rounds run on ``device``, and a map already
+    there is not copied."""
+    x = _score_map(x, device)
     W = x.shape[1]
-    mask = nms_mask_2d(x.contiguous(), int(r), float(threshold))
-    scores, flat_idx = _mask_to_sorted(x.cpu().numpy(), mask.cpu().numpy())
+    mask = nms_mask_2d(x, int(r), float(threshold))
+    scores, flat_idx = _sorted_peaks(x, mask)
     coords = np.stack([flat_idx % W, flat_idx // W], axis=1).astype(np.int32)
+    return scores, coords
+
+
+def _sphere_chords(r: float):
+    """{half-width: [(dz, dy), ...]} for the integer sphere
+    dz^2 + dy^2 + dx^2 <= r^2 (topaz_tpu/ops/nms.py:89-100)."""
+    R = int(math.ceil(r))
+    groups = {}
+    for dz in range(-R, R + 1):
+        for dy in range(-R, R + 1):
+            m = r * r - dz * dz - dy * dy
+            if m < 0:
+                continue
+            groups.setdefault(int(math.floor(math.sqrt(m))), []).append((dz, dy))
+    return groups
+
+
+def sphere_max(x: torch.Tensor, r: float, init=NEG) -> torch.Tensor:
+    """Max filter over the clipped integer sphere of radius r over the last
+    three axes (topaz_tpu/ops/nms.py:103-124); taps outside read ``init``.
+    Chord maxima build up over column shifts as in ``disk_max``; each
+    (dz, dy) chord is folded in by a padded plane-and-row shift. Max is
+    exact, so the result is bit-equal to any other order."""
+    groups = _sphere_chords(float(r))
+    R = int(math.ceil(r))
+    max_w = max(groups)
+    D, H, W = x.shape[-3:]
+    cols = x.new_full(x.shape[:-1] + (W + 2 * max_w,), init)
+    cols[..., max_w:max_w + W] = x
+    planes = x.new_full(x.shape[:-3] + (D + 2 * R, H + 2 * R, W), init)
+    out = x.new_full(x.shape, init)
+    cur = x
+    for w in range(max_w + 1):
+        if w > 0:
+            left = cols[..., max_w - w:max_w - w + W]
+            right = cols[..., max_w + w:max_w + w + W]
+            cur = torch.maximum(cur, torch.maximum(left, right))
+        if w not in groups:
+            continue
+        planes[..., R:R + D, R:R + H, :] = cur
+        for dz, dy in groups[w]:
+            torch.maximum(out, planes[..., R + dz:R + dz + D, R + dy:R + dy + H, :], out=out)
+    return out
+
+
+def nms_mask_3d(score: torch.Tensor, r: float, threshold: float) -> torch.Tensor:
+    """Accepted-peak mask for 3D greedy NMS of a (D, H, W) score map
+    (topaz_tpu/ops/nms.py:183-186), plain PyTorch on every device."""
+    return _greedy_rounds(score, threshold, lambda x, init: sphere_max(x, r, init))
+
+
+def non_maximum_suppression_3d(
+    x, r: int, scale: float = 1.0, threshold: float = -np.inf, device="cuda"
+) -> Tuple[np.ndarray, np.ndarray]:
+    """3D NMS (topaz_tpu/ops/nms.py:211-226, topaz/algorithms.py:66-103):
+    the radius is ``scale * r``; returns (scores, coords[x, y, z]) sorted by
+    descending score. The rounds run on ``device``."""
+    x = _score_map(x, device)
+    D, H, W = x.shape
+    mask = nms_mask_3d(x, float(scale * r), float(threshold))
+    scores, flat_idx = _sorted_peaks(x, mask)
+    rem = flat_idx % (H * W)
+    coords = np.stack([rem % W, rem // W, flat_idx // (H * W)], axis=1).astype(np.int32)
     return scores, coords
