@@ -84,7 +84,7 @@ def test_suffix_and_stack_outputs(tmp_path):
     ["denoise", "-d", "-2", "-o", "{d}", "{d}/mic.mrc"],
     ["denoise3d", "-d", "-2", "-o", "{d}", "{d}/mic.mrc"],
     ["denoise", "-d", "cpu", "-m", "{d}/model.sav", "-o", "{d}", "{d}/mic.mrc"],
-    ["train", "-d", "cpu", "--dims", "3", "--train-images", "{d}",
+    ["train", "-d", "cpu", "--dims", "3", "-m", "{d}/model.sav", "--train-images", "{d}",
      "--train-targets", "{d}/targets.txt"],
 ])
 def test_not_ported_paths_exit_with_an_error(tmp_path, argv):

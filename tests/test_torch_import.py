@@ -50,7 +50,9 @@ def test_import_loads_no_jax_nor_jax_package():
     scanned = set(out.stdout.splitlines()[1].split())
     assert {"topaz_tpu_torch.train.denoise_data", "topaz_tpu_torch.cli.commands.denoise3d",
             "topaz_tpu_torch.denoise", "topaz_tpu_torch.models.denoise_factory",
-            "topaz_tpu_torch.models.tiling", "topaz_tpu_torch.cli.commands.downsample"} <= scanned
+            "topaz_tpu_torch.models.tiling", "topaz_tpu_torch.cli.commands.downsample",
+            "topaz_tpu_torch.models.generative",
+            "topaz_tpu_torch.cli.commands.precision_recall_curve"} <= scanned
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
@@ -148,6 +150,12 @@ def _entry_points(tmp_path):
         "non_maximum_suppression_3d": lambda: non_maximum_suppression_3d(
             np.zeros((4, 4, 4), np.float32), 1),
         "downsample_file": lambda: downsample_file(path, 2, str(tmp_path / "d.mrc")),
+        "train_model_dims3": lambda: train_model(train_cli.add_arguments().parse_args(
+            ["--train-images", str(tmp_path), "--train-targets", str(tmp_path / "t.txt"),
+             "-n", "5", "--dims", "3", "--augment-3d"])),
+        "train_model_autoencoder": lambda: train_model(train_cli.add_arguments().parse_args(
+            ["--train-images", str(tmp_path), "--train-targets", str(tmp_path / "t.txt"),
+             "-n", "5", "--autoencoder", "1"])),
     }
 
 
@@ -158,7 +166,8 @@ def _entry_points(tmp_path):
     "normalize_images_batched", "new_picker", "train_model", "Denoise3D",
     "Denoise_from_arch", "extract_targets", "extract_only_validate",
     "extract_per_micrograph", "extract_per_micrograph_batched", "extract_patch_size",
-    "extract_dims3", "non_maximum_suppression_3d", "downsample_file"])
+    "extract_dims3", "non_maximum_suppression_3d", "downsample_file", "train_model_dims3",
+    "train_model_autoencoder"])
 def test_entry_points_raise_without_cuda(tmp_path, monkeypatch, entry):
     from topaz_tpu_torch.device import DeviceUnavailableError
 

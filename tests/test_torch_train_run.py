@@ -155,19 +155,11 @@ def test_train_cli_runs_in_a_subprocess(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--autoencoder", "1"], "P13"),
-    (["--dims", "3"], "P12"),
-    (["--augment-3d"], "P12"),
     (["-d", "-2"], "P14"),
     (["-m", "{d}/model.sav", "-d", "cpu"], "P13"),
-    (["--resume", "{d}/jax_state.npz", "-d", "cpu"], "JAX package"),
 ])
 def test_unported_paths_exit_naming_their_item(tmp_path, flags, item):
-    import json
-
     (tmp_path / "model.sav").write_bytes(b"")
-    np.savez(tmp_path / "jax_state.npz", leaf_0=np.zeros(1), __meta__=np.frombuffer(
-        json.dumps({"epoch": 1, "iter": 2, "n_leaves": 1}).encode(), dtype=np.uint8))
     argv = _dataset(tmp_path, n_images=1) + ["-n", "5", "--num-epochs", "1", "--epoch-size", "1",
                                              "--no-pretrained", "--units", "4"]
     with pytest.raises(SystemExit) as e:

@@ -1,14 +1,14 @@
-"""topaz train (topaz/commands/train.py): 2D picker PU training with the JAX
-CLI's flags. The paths this port does not run yet exit with a
-not-yet-ported error naming their ROADMAP item: --autoencoder > 0 (P13),
---dims 3 and --augment-3d (P12), -d -2 (P14), a .sav --model (P13), and
---resume from a training state of the JAX package."""
+"""topaz train (topaz/commands/train.py): PU picker training on micrographs
+or tomograms (--dims 3, --augment-3d), with the autoencoder regularizer
+(--autoencoder), with the JAX CLI's flags and defaults. The paths this port
+does not run yet exit with a not-yet-ported error naming their ROADMAP item:
+-d -2 (P14) and a .sav --model (P13)."""
 import argparse
 
 from topaz_tpu_torch.device import parse_device_flag
 
 name = "train"
-help = "train 2D region classifier from images with labeled coordinates"
+help = "train region classifier from images with labeled coordinates"
 
 
 def add_arguments(parser=None):
@@ -48,7 +48,7 @@ def add_arguments(parser=None):
     training.add_argument("--entropy-penalty", default=0.0, type=float, help="weight of the classifier-entropy penalty for the GE methods (reference hardcodes 0; topaz/methods.py:80,171)")
     training.add_argument("--ge-momentum", default=1.0, type=float, help="running-expectation momentum for GE-KL; 1 disables the running average (reference hardcodes 1.0; topaz/methods.py:170,210-212)")
     training.add_argument("--pu-beta", default=0.0, type=float, help="nnPU clipping threshold beta for the PU method; 0 is NNPU (reference hardcodes 0; topaz/methods.py:260-261)")
-    training.add_argument("--autoencoder", default=0, type=float, help="option to augment method with autoencoder. weight on reconstruction error (not yet ported when > 0) (default: 0)")
+    training.add_argument("--autoencoder", default=0, type=float, help="option to augment method with autoencoder. weight on reconstruction error; 2D only (default: 0)")
     training.add_argument("--l2", default=0.0, type=float, help="l2 regularizer on the model parameters (default: 0)")
     training.add_argument("--learning-rate", default=0.0002, type=float, help="learning rate for the optimizer (default: 0.0002)")
     training.add_argument("--natural", action="store_true", help="sample unbiasedly from the data to form minibatches rather than balancing positives")
@@ -56,7 +56,7 @@ def add_arguments(parser=None):
     training.add_argument("--minibatch-balance", default=0.0625, type=float, help="fraction of minibatch that is positive data points (default: 0.0625)")
     training.add_argument("--epoch-size", default=1000, type=int, help="number of parameter updates per epoch (default: 1000)")
     training.add_argument("--num-epochs", default=10, type=int, help="maximum number of training epochs (default: 10)")
-    training.add_argument("--augment-3d", dest="augment3d", action="store_true", help="augment 3D (--dims 3) training crops (not yet ported)")
+    training.add_argument("--augment-3d", dest="augment3d", action="store_true", help="augment 3D (--dims 3) training crops on the device: xy-plane rotation about z plus random x/y/z flips, the missing-wedge-safe group (extension: the reference never augments 3D crops)")
 
     model = parser.add_argument_group("model arguments (optional)")
     model.add_argument("--pretrained", dest="pretrained", action="store_true", help="initialize model parameters from the pretrained model with the same configuration when available (default)")
@@ -74,14 +74,14 @@ def add_arguments(parser=None):
 
     outputs = parser.add_argument_group("output file arguments (optional)")
     outputs.add_argument("--save-prefix", help="path prefix to save trained models each epoch")
-    outputs.add_argument("--resume", help="path to a <save-prefix>_train_state.npz checkpoint written by this package: restore the whole training state (optimizer, method state, rng, sampler stream) and continue bit-exactly; states written by the JAX package are not read")
+    outputs.add_argument("--resume", help="path to a <save-prefix>_train_state.npz checkpoint: restore the whole training state (optimizer, method state, rng, sampler stream) and continue bit-exactly; a state written by the JAX package (python -m topaz_tpu train) restores all but its step key, so dropout and on-device augmentation then draw from --seed")
     outputs.add_argument("--save-interval-steps", type=int, default=0, help="also checkpoint the full training state every N steps within an epoch (0 = per-epoch only); mid-epoch resume continues on the exact next batch (default: 0)")
     outputs.add_argument("-o", "--output", help="destination to write the train/test curve")
 
     misc = parser.add_argument_group("miscellaneous arguments (optional)")
     misc.add_argument("--test-batch-size", default=1, type=int, help="batch size for calculating test set statistics (default: 1)")
     misc.add_argument("--seed", default=0, type=int, help="random seed for model init and sampling (default: 0)")
-    misc.add_argument("--dims", type=int, default=2, choices=[2, 3], help="input dimensionality: 2 for micrographs; 3 (tomograms) is not yet ported (default: 2)")
+    misc.add_argument("--dims", type=int, default=2, choices=[2, 3], help="input dimensionality: 2 for micrographs, 3 to train a picker on tomograms with z_coord targets; the bundled pretrained pickers are 2D, so a 3D run starts from fresh weights (default: 2)")
 
     return parser
 

@@ -15,7 +15,7 @@ import sys
 
 # commands of the JAX CLI (topaz_tpu/cli/commands/) not yet ported
 NOT_PORTED = (
-    "segment", "precision_recall_curve", "watch", "serve", "warmup",
+    "segment", "watch", "serve", "warmup",
     "convert", "split", "particle_stack",
     "train_test_split", "gui", "scale_coordinates", "boxes_to_coordinates",
     "star_to_coordinates", "coordinates_to_star", "coordinates_to_boxes",
@@ -33,19 +33,22 @@ def _not_ported(name: str):
 def build_parser() -> argparse.ArgumentParser:
     import topaz_tpu_torch
     from topaz_tpu_torch.cli.commands import (denoise, denoise3d, downsample, extract,
-                                              normalize, preprocess, train)
+                                              normalize, precision_recall_curve, preprocess,
+                                              train)
 
     parser = argparse.ArgumentParser(
         prog="python -m topaz_tpu_torch",
         fromfile_prefix_chars="@",
         description="PyTorch/CUDA port of topaz_tpu. Ported: "
-                    "normalize, preprocess, extract, denoise, denoise3d, train, downsample.",
+                    "normalize, preprocess, extract, denoise, denoise3d, train (2D and 3D, "
+                    "--autoencoder), downsample, precision_recall_curve.",
     )
     parser.add_argument("--version", action="version", version=topaz_tpu_torch.__version__)
     subparsers = parser.add_subparsers(title="commands", metavar="<command>")
     subparsers.required = True
     subparsers.dest = "command"
-    for module in (denoise, denoise3d, downsample, extract, normalize, preprocess, train):
+    for module in (denoise, denoise3d, downsample, extract, normalize, precision_recall_curve,
+                   preprocess, train):
         sub = subparsers.add_parser(module.name, help=module.help)
         module.add_arguments(sub)
         sub.set_defaults(func=module.main)

@@ -9,7 +9,9 @@ the JAX package's layout: ``__meta__`` (arch and constructor kwargs),
 statistics. ``picker_from_numpy`` and ``picker_to_numpy`` carry such trees
 into the port's OIHW module and back (DHWIO <-> OIDHW for 3D pickers), so
 that either package loads the other's checkpoints; ``dims`` travels in the
-meta.
+meta. A checkpoint of an autoencoder run also holds the decoder under
+``params:generative``, as the JAX package writes it; loading a picker
+ignores it.
 """
 
 from __future__ import annotations
@@ -167,12 +169,18 @@ def load_picker(name_or_path: str, device="cuda") -> Picker:
     return model.to(device)
 
 
-def save_picker(path: str, model: Picker) -> None:
+def save_picker(path: str, model: Picker, decoder=None) -> None:
     """Write a picker checkpoint that the JAX package's ``load_picker``
-    reads (topaz_tpu/models/factory.py:121-139)."""
+    reads (topaz_tpu/models/factory.py:121-139), with an autoencoder run's
+    ``decoder`` (a ``models.generative.Generator``) beside the picker, as
+    topaz_tpu/training.py:440-445 saves it."""
+    from topaz_tpu_torch.models.generative import generator_to_numpy
+
     meta = {"arch": model.spec.arch, "dims": model.spec.dims}
     meta.update(dict(model.spec.config))
     params, state = picker_to_numpy(model)
+    if decoder is not None:
+        params["generative"] = generator_to_numpy(decoder)
     save_checkpoint(path, meta, params=params, state=state)
 
 

@@ -1,6 +1,7 @@
 """Picker training: data statistics, pi, the epoch loop, evaluation and
 checkpoints (port of topaz_tpu/training.py:35-518, the reference's
-topaz/training.py), for 2D micrographs, without pandas.
+topaz/training.py), for 2D micrographs and 3D tomograms, with the optional
+autoencoder regularizer, without pandas.
 
 The stdout/stderr contract is the reference's:
   * '# source split p_observed ...' data-statistics lines from the MRC
@@ -13,7 +14,9 @@ The stdout/stderr contract is the reference's:
 The sampler runs in a producer thread; the steps run on the device; each
 train row's metrics are copied out in one non-blocking copy right after
 their step and printed a few steps later, so the host never waits for the
-device inside an epoch.
+device inside an epoch. In 3D the producer draws only the windows'
+positions, and the windows are cut on the device from the tomograms
+uploaded once (``train.data.ResidentVolumes``).
 """
 
 from __future__ import annotations
@@ -34,14 +37,16 @@ from topaz_tpu_torch.io.coordinates import Coordinates
 from topaz_tpu_torch.io.image import load_image
 from topaz_tpu_torch.io.mrc import HEADER_SIZE, parse_header
 from topaz_tpu_torch.models.factory import load_picker, new_picker, save_picker
+from topaz_tpu_torch.models.generative import generator_width, init_generator
+from topaz_tpu_torch.models.tiling import classify_patches_3d
 from topaz_tpu_torch.ops.masks import as_mask
-from topaz_tpu_torch.ops.metrics import average_precision
+from topaz_tpu_torch.ops.metrics import average_precision_tensor
 from topaz_tpu_torch.preprocess import calculate_pi, pixels_given_radius
-from topaz_tpu_torch.train.data import CropSampler, find_image_paths
+from topaz_tpu_torch.train.data import CropSampler, ResidentVolumes, find_image_paths
 from topaz_tpu_torch.train.methods import bce_with_logits, make_loss_fn
 from topaz_tpu_torch.train.partition import kfold
 from topaz_tpu_torch.train.trainer import (
-    init_train_state, load_train_state, make_train_step, save_train_state)
+    init_train_state, is_jax_state, load_train_state, make_train_step, save_train_state)
 from topaz_tpu_torch.utils.batching import iterate_prefetched
 from topaz_tpu_torch.utils.printing import report
 from topaz_tpu_torch.utils.profiling import stage
@@ -121,7 +126,10 @@ def report_data_stats(train_images_path: str, train_targets_path: str,
 def make_model_from_args(args, device):
     """The picker to train, on ``device``: a checkpoint given to --model, the
     bundled pretrained weights of the same configuration, or fresh weights
-    (topaz/training.py:298-349)."""
+    (topaz/training.py:298-349). Every bundled picker is 2D, so a 3D run
+    with --pretrained warns that its weights are unavailable and starts
+    from fresh ones, where the JAX package loads the 2D weights into a 3D
+    run that then fails at its first step."""
     report("Loading model:", args.model)
     if args.model.endswith(".sav"):
         raise NotImplementedError(
@@ -138,6 +146,8 @@ def make_model_from_args(args, device):
                 ("resnet16", 64): "resnet16_u64"}.get((args.model, args.units))
     if flag is not None:
         try:
+            if args.dims != 2:
+                raise FileNotFoundError(f"{flag} is a 2D picker")
             report("Loading pretrained model:", flag)
             return load_picker(flag, device=device)
         except FileNotFoundError:
@@ -167,9 +177,13 @@ def adjust_method(method: str, pi: Optional[float], p_observed: float):
 
 def evaluate_model(model, test_paths: List[str], test_targets: Coordinates,
                    radius: int = 3):
-    """Dense whole-micrograph evaluation (topaz/training.py:506-548): mean
+    """Dense whole-image evaluation (topaz/training.py:506-548): mean
     per-pixel BCE, precision, TPR, FPR and AUPRC against the targets
-    rasterized at ``radius``."""
+    rasterized at ``radius`` (with their z_coord for a tomogram). A
+    tomogram is scored in tiles (``classify_patches_3d``), which equals
+    one dense pass within float32 and keeps the activations of a 192 x 384
+    x 384 tomogram at full width out of memory. The scores stay on the
+    model's device, where the metrics are computed (sums in float64)."""
     device = model.classifier_w.device
     n = 0
     loss = 0.0
@@ -177,23 +191,28 @@ def evaluate_model(model, test_paths: List[str], test_targets: Coordinates,
     for path in test_paths:
         img = np.array(load_image(path), dtype=np.float32)
         t = test_targets.for_image(_name(path))
-        mask = as_mask(img.shape, radius, t.x_coord, t.y_coord)
+        z = t.z_coord if img.ndim == 3 else None
+        mask = torch.from_numpy(as_mask(img.shape, radius, t.x_coord, t.y_coord,
+                                        z_coord=z).ravel()).to(device)
         with torch.no_grad():
-            score = model(torch.from_numpy(img).to(device)[None])[0]
-            this_loss = bce_with_logits(score.reshape(-1),
-                                        torch.from_numpy(mask.ravel()).to(device)).mean()
+            if img.ndim == 3:
+                score = classify_patches_3d(model, img).reshape(-1)
+            else:
+                score = model(torch.from_numpy(img).to(device)[None])[0].reshape(-1)
+            this_loss = bce_with_logits(score, mask).mean()
         n += 1
         loss += (float(this_loss) - loss) / n
-        scores.append(score.cpu().numpy().ravel())
-        y_true.append(mask.ravel())
+        scores.append(score)
+        y_true.append(mask)
 
-    scores = np.concatenate(scores)
-    y_true = np.concatenate(y_true)
-    y_hat = 1.0 / (1.0 + np.exp(-scores))
-    precision = y_hat[y_true == 1].sum() / y_hat.sum()
-    tpr = y_hat[y_true == 1].mean()
-    fpr = y_hat[y_true == 0].mean()
-    auprc = average_precision(y_true, scores)
+    scores = torch.cat(scores)
+    y_true = torch.cat(y_true)
+    y_hat = torch.sigmoid(scores).to(torch.float64)
+    positive = y_true == 1
+    precision = float(y_hat[positive].sum() / y_hat.sum())
+    tpr = float(y_hat[positive].mean())
+    fpr = float(y_hat[~positive].mean())
+    auprc = average_precision_tensor(y_true, scores)
     return loss, precision, tpr, fpr, auprc
 
 
@@ -230,21 +249,15 @@ class _LaggedRows:
             self._pop()
 
 
-def check_ported(args) -> None:
-    """Raise for the training paths the port does not run yet."""
-    if args.dims != 2 or getattr(args, "augment3d", False):
-        raise NotImplementedError("3D picker training (--dims 3, --augment-3d) is not "
-                                  "yet ported to topaz_tpu_torch (ROADMAP P12)")
-    if args.autoencoder > 0:
-        raise NotImplementedError("the autoencoder regularizer (--autoencoder > 0) is "
-                                  "not yet ported to topaz_tpu_torch (ROADMAP P13)")
-
-
 def train_model(args, output=None):
     """End-to-end training (topaz/training.py:606-647 and fit_epochs);
     returns the final ``TrainState``."""
     output = output or sys.stdout
-    check_ported(args)
+    if args.autoencoder > 0 and args.dims != 2:
+        # the JAX package's decoder and its target are 2D; its 3D step fails
+        # on broadcasting (4, 31, 31, 31) against (4, 31, 31)
+        raise ValueError("the autoencoder regularizer (--autoencoder > 0) is 2D only; "
+                         "train a 3D picker (--dims 3) without it")
     device = resolve_device(args.device)
 
     model = make_model_from_args(args, device)
@@ -288,7 +301,8 @@ def train_model(args, output=None):
     train_paths = [p for group in train_grouped for p in group]
     seed = getattr(args, "seed", 0)
     sampler = CropSampler(train_paths, train_targets, model.spec.width, radius=args.radius,
-                          split=split, rotate=True, seed=seed)
+                          split=split, rotate=(args.dims == 2 or args.augment3d), seed=seed,
+                          dims=args.dims)
     report(f"Loaded {sampler.num_images} training micrographs with "
            f"~{int(sampler.num_pixels // sampler.mask_size)} labeled particles")
 
@@ -300,8 +314,20 @@ def train_model(args, output=None):
                f"{len(test_targets)} labeled particles")
 
     balance = (num_positive / total_regions) if args.natural else args.minibatch_balance
-    state = init_train_state(model, pi_adj, lr=args.learning_rate, seed=seed)
-    step_fn = make_train_step(loss_fn, l2=args.l2)
+
+    # the autoencoder regularizer (topaz/training.py:339-345); its weights
+    # come from seed + 1 as the JAX package's do, but from torch's generator
+    decoder = None
+    if args.autoencoder > 0:
+        depth = int(np.log2(model.spec.width + 1) - 3)
+        decoder = init_generator(model.spec.latent_dim, torch.Generator().manual_seed(seed + 1),
+                                 units=args.ngf, depth=depth).to(device)
+        at = 2 if "ge_penalty" in header else 1
+        header = header[:at] + ["recon_error"] + header[at:]
+        report(f"Generator: units={args.ngf}, size={generator_width(depth)}")
+
+    state = init_train_state(model, pi_adj, lr=args.learning_rate, seed=seed, decoder=decoder)
+    step_fn = make_train_step(loss_fn, l2=args.l2, autoencoder=args.autoencoder)
 
     # --resume: the whole training state and the sampler's stream, so the
     # run continues bit-exactly, mid-epoch included (the reference's resume
@@ -319,6 +345,10 @@ def train_model(args, output=None):
             sampler.rng.bit_generator.state = rmeta["sampler_rng"]
         report(f"Resuming at epoch {start_epoch}"
                + (f" step {start_step + 1}" if start_step else "") + f" (iter {it})")
+        if is_jax_state(rmeta):
+            report("The JAX package's step key does not carry over: dropout and on-device "
+                   f"augmentation draw from this run's seed ({seed}); weights, optimizer, "
+                   "objective and the sampler's stream continue")
 
     save_steps = int(getattr(args, "save_interval_steps", 0) or 0)
     state_path = (args.save_prefix + "_train_state.npz"
@@ -342,6 +372,7 @@ def train_model(args, output=None):
                          sampler_rng_state=rng_state)
 
     pin = device.type == "cuda"
+    volumes = ResidentVolumes(sampler, device) if args.dims == 3 else None
     rows = _LaggedRows(print_row, depth=int(os.environ.get("TOPAZ_METRIC_LAG", "8")))
     for epoch in range(start_epoch, args.num_epochs + 1):
         n_steps = args.epoch_size - (start_step if epoch == start_epoch else 0)
@@ -354,18 +385,23 @@ def train_model(args, output=None):
             for _ in range(n):
                 n_pos = (int(sampler.rng.binomial(args.minibatch_size, balance))
                          if balance else 0)
-                crops, labels = sampler.sample_batch(args.minibatch_size, n_pos)
-                crops, labels = torch.from_numpy(crops), torch.from_numpy(labels)
-                if pin:
-                    crops, labels = crops.pin_memory(), labels.pin_memory()
+                if volumes is not None:  # positions now, windows on the device
+                    *crops, labels = sampler.sample_positions(args.minibatch_size, n_pos)
+                else:
+                    crops, labels = sampler.sample_batch(args.minibatch_size, n_pos)
+                    crops = torch.from_numpy(crops)
+                    crops = crops.pin_memory() if pin else crops
+                labels = torch.from_numpy(labels)
+                labels = labels.pin_memory() if pin else labels
                 yield crops, labels, copy.deepcopy(sampler.rng.bit_generator.state)
 
         step_in_epoch = start_step if epoch == start_epoch else 0
         rng_state = None
         with stage("train_epoch"):
             for crops, labels, rng_state in iterate_prefetched(producer, maxsize=4):
-                metrics = step_fn(state, crops.to(device, non_blocking=True),
-                                  labels.to(device, non_blocking=True))
+                crops = (volumes.gather(*crops) if volumes is not None
+                         else crops.to(device, non_blocking=True))
+                metrics = step_fn(state, crops, labels.to(device, non_blocking=True))
                 rows.push(epoch, it, torch.stack([metrics[h] for h in plain_cols]))
                 it += 1
                 step_in_epoch += 1
@@ -388,14 +424,13 @@ def train_model(args, output=None):
             digits = int(np.ceil(np.log10(max(args.num_epochs, 2))))
             path = args.save_prefix + f"_epoch{epoch:0{digits}}.npz"
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-            save_picker(path, model)
+            save_picker(path, model, decoder)
             save_state(epoch, 0, rng_state)
     return state
 
 
 def train_from_args(args):
     """CLI entry (topaz/commands/train.py main contract)."""
-    check_ported(args)
     if args.describe:
         print(make_model_from_args(args, resolve_device(args.device)).spec)
         sys.exit()
