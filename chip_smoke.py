@@ -123,7 +123,29 @@ Phases, in order; any failure exits non-zero before a result is printed:
    against the CPU without ``--augment-3d`` on a 48 x 96 x 96 crop at
    ``--minibatch-size 8``: the first two rows within ``TRAIN_TOL``, all
    within ``TRAIN_DRIFT_TOL``. No disk_max launch.
-13. Print the kernels line, the card line, and last the result line.
+13. The coordinate tools, ``.sav`` models and ``segment`` (``run_tools``,
+   phase ``tools``): four unbinned K3 micrographs of 4092 x 5760 in f32
+   (seed 500, ~200 planted particles each) binned 4x by ``preprocess -s
+   4``. ``resnet16_u32`` exported as ``.sav`` by the port
+   (``export_picker_sav``; the load time printed), then ``extract -m
+   that.sav`` and ``extract -m resnet16_u32`` on the card: identical
+   picks, the .sav run's disk_max launches counted (``sav_extract``), the
+   kernel bit-equal to its plain version on that path's score map.
+   ``segment -m resnet16_u32`` (the bundled resnet16 at full width; the
+   default alias's u64 weights are not in the repo) whole and ``-p 256``:
+   ms a micrograph, the dense forward against its f32 bound, card maps
+   against the CPU's on a 400^2 crop's interior (``PIPELINE_TOL`` x max(1,
+   |score|)); without PIL on the machine the maps come from the library
+   and the .tiff write is skipped. A 192 x 384 x 384 tomogram with a 3D
+   resnet8 at units 32 (seed 0) through ``segment -p 48`` into .npy. The
+   RELION handoff: ``convert -x 4 --to star --voltage 300
+   --detector-pixel-size 5``, ``star_particles_threshold``, ``split``,
+   ``coordinates_to_boxes`` then ``boxes_to_coordinates`` (the coordinates
+   come back), and ``particle_stack --size 256 --metadata`` over the ~800
+   best picks on the unbinned micrographs, without and with ``--resize 64``
+   on the card and on the CPU (pixels within ``STACK_TOL``, STAR files
+   equal); particles a second of each.
+14. Print the kernels line, the card line, and last the result line.
 
 ``--only PHASE ...`` runs the kernel check and those phases alone and
 prints no result line (for trying a phase on the card).
@@ -193,6 +215,16 @@ TRAIN3D_EPOCH_SIZE = 15
 TRAIN_BATCH = 256
 # steps an epoch of the train_ae phase
 TRAIN_AE_EPOCH_SIZE = 50
+# the tools phase: unbinned K3 micrographs (height x width) with planted
+# particles, binned 4x for picking and segmenting; particle_stack's box
+# and its --resize; about STACK_PARTICLES particles a micrograph go into
+# the stack
+K3_SHAPE, K3_FILES, K3_BIN = (4092, 5760), 4, 4
+STACK_SIZE, STACK_RESIZE, STACK_PARTICLES = 256, 64, 200
+# card against CPU, particle_stack --resize: each crop is standardized, so
+# values are ~N(0, 1); cuFFT and pocketfft and two sum orders of the
+# standardization differ by ~1e-6
+STACK_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 
@@ -2106,9 +2138,320 @@ def run_train_ae(workdir: str, files):
     return launches
 
 
+def write_k3_micrographs(workdir: str, n: int = K3_FILES, per: int = STACK_PARTICLES,
+                         seed: int = SEED + 500):
+    """``n`` unbinned micrographs of K3_SHAPE (f32 Gaussian noise with
+    ``per`` planted particles each, a 3 sigma dip of radius ~24 px) in
+    ``raw/``; returns their paths."""
+    import numpy as np
+
+    from topaz_tpu_torch.io import mrc
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(workdir, "raw"))
+    w = 72
+    yy, xx = np.mgrid[-w:w, -w:w].astype(np.float32)
+    blob = 3.0 * np.exp(-(yy ** 2 + xx ** 2) / (2 * 24.0 ** 2))
+    paths = []
+    h, wd = K3_SHAPE
+    for i in range(n):
+        x = rng.standard_normal(K3_SHAPE, dtype=np.float32)
+        for cy, cx in zip(rng.integers(w, h - w, size=per), rng.integers(w, wd - w, size=per)):
+            x[cy - w:cy + w, cx - w:cx + w] -= blob
+        paths.append(os.path.join(workdir, "raw", f"k3_{i}.mrc"))
+        mrc.write(paths[-1], x)
+    print(f"# tools: {n} micrographs {K3_SHAPE} written in {time.perf_counter() - t0:.3f} s")
+    return paths
+
+
+def read_table_rows(path):
+    """(header, rows) of a tab-separated table."""
+    with open(path) as f:
+        header = next(f).rstrip("\n").split("\t")
+        return header, [line.rstrip("\n").split("\t") for line in f if line.strip()]
+
+
+def run_sav_extract(workdir: str, binned):
+    """``extract -m <resnet16_u32 exported as .sav>`` against ``extract -m
+    resnet16_u32`` on the binned micrographs: identical picks; the disk_max
+    launches of the .sav run; the kernel bit-equal to its plain version on
+    one of its score maps; the .sav load time. Returns (launches, the .sav
+    run's pick table)."""
+    import torch
+
+    from topaz_tpu_torch.cli.main import main as cli
+    from topaz_tpu_torch.extract import score_images
+    from topaz_tpu_torch.models.convert import export_picker_sav
+    from topaz_tpu_torch.models.factory import load_picker
+    from topaz_tpu_torch.ops import disk_max as dm
+    from topaz_tpu_torch.ops.nms import NEG, disk_max as plain
+
+    sav = os.path.join(workdir, "resnet16_u32.sav")
+    t0 = time.perf_counter()
+    export_picker_sav(sav, "resnet16_u32")
+    export_s = time.perf_counter() - t0
+    loads = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = load_picker(sav, device="cuda")
+        torch.cuda.synchronize()
+        loads.append((time.perf_counter() - t0) * 1e3)
+    print(f"# tools: resnet16_u32 exported as .sav in {export_s:.3f} s "
+          f"({os.path.getsize(sav)} bytes); load_picker(.sav) onto the card "
+          f"{loads[0]:.3f} ms cold, {loads[1]:.3f} / {loads[2]:.3f} ms warm")
+    picks = {}
+    for model_arg, tag in ((sav, "sav"), ("resnet16_u32", "alias")):
+        picks[tag] = os.path.join(workdir, f"picks_{tag}.txt")
+        if tag == "sav":
+            dm.launches = 0
+        t0 = time.perf_counter()
+        cli(["extract", "-m", model_arg, "-r", str(RADIUS), "-t", str(THRESHOLD),
+             "-o", picks[tag], "-d", "0"] + binned)
+        torch.cuda.synchronize()
+        if tag == "sav":
+            launches = dm.launches
+        print(f"# tools: extract -m {os.path.basename(model_arg)} on {len(binned)} binned "
+              f"micrographs: {time.perf_counter() - t0:.3f} s")
+    sav_rows, alias_rows = (read_table_rows(picks[t])[1] for t in ("sav", "alias"))
+    if sav_rows != alias_rows or len(sav_rows) < len(binned):
+        fail(f"extract -m .sav gave {len(sav_rows)} picks, -m resnet16_u32 {len(alias_rows)}; "
+             f"identical: {sav_rows == alias_rows}")
+    if launches < 3 * len(binned):
+        fail(f"extract -m .sav launched disk_max {launches} times for {len(binned)} micrographs")
+    print(f"# tools: extract -m .sav and -m resnet16_u32: {len(sav_rows)} picks, identical; "
+          f"disk_max launches of the .sav run {launches}")
+    _, score = next(score_images(sav, binned[:1], device="cuda"))
+    got = dm.disk_max(score.contiguous(), RADIUS, NEG)
+    want = plain(score.contiguous(), RADIUS, NEG)
+    if not torch.equal(got, want):
+        fail(f"disk_max on the .sav path's score map {tuple(score.shape)} differs from plain")
+    print(f"# tools: disk_max on the .sav path's score map {tuple(score.shape)} r={RADIUS}: "
+          f"bit-equal to the plain version")
+    return launches, picks["sav"]
+
+
+def run_segment(workdir: str, binned):
+    """``segment -m resnet16_u32`` (the bundled resnet16 at full width) on the
+    binned micrographs, whole and ``-p 256``; ms a micrograph and the share
+    of its f32 bound; card maps against the port's CPU map of one
+    micrograph; then one 192 x 384 x 384 tomogram with a 3D resnet8 at units
+    32 (seed 0) through ``segment -p 48``, written as .npy. Without PIL on
+    this machine the 2D maps come from the library function and the .tiff
+    write is skipped."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from topaz_tpu_torch.cli.main import main as cli
+    from topaz_tpu_torch.io import mrc
+    from topaz_tpu_torch.models.factory import load_picker, new_picker, save_picker
+    from topaz_tpu_torch.models.tiling import classify_patches_3d
+    from topaz_tpu_torch.segment import score_maps
+
+    have_pil = importlib.util.find_spec("PIL") is not None
+    maps = {}
+    for patch in (None, 256):
+        tag = "whole" if patch is None else f"-p {patch}"
+        out = os.path.join(workdir, f"seg_{'whole' if patch is None else patch}")
+        argv = ["segment", "-m", "resnet16_u32", "-o", out, "-d", "0"] + (
+            ["-p", str(patch)] if patch else [])
+        walls = []
+        for _ in range(2):  # cold, then warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if have_pil:
+                cli(argv + binned)
+                from PIL import Image
+
+                got = {}
+                for path in binned:
+                    name = os.path.splitext(os.path.basename(path))[0]
+                    with Image.open(os.path.join(out, name + ".tiff")) as im:
+                        got[name] = np.array(im)
+            else:
+                got = {os.path.splitext(os.path.basename(p))[0]: m
+                       for p, m in score_maps("resnet16_u32", binned, patch_size=patch,
+                                              device="cuda")}
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / len(binned))
+        maps[tag] = got
+        print(f"# tools: segment {tag} ({'CLI, .tiff' if have_pil else 'library; no PIL on '
+              'this machine, the .tiff write was skipped'}): {walls[0]:.3f} ms a micrograph "
+              f"cold, {walls[1]:.3f} ms warm")
+    # the dense forward alone against its bound
+    model = load_picker("resnet16_u32", device="cuda")
+    x = torch.from_numpy(np.array(mrc.read(binned[0])[0], dtype=np.float32)).cuda()[None]
+    pad = model.spec.width // 2
+    flops = picker_dense_flops(model.spec, (x.shape[1] + 2 * pad, x.shape[2] + 2 * pad))
+    bound_ms = flops / F32_OPS_PER_S * 1e3
+    with torch.inference_mode():
+        device_ms = cuda_ms(lambda: model(x), 10)
+    print(f"# tools: segment resnet16_u32 dense forward {tuple(x.shape[1:])}: device "
+          f"{device_ms:.3f} ms a micrograph (CUDA events, eager); bound {bound_ms:.3f} ms "
+          f"({flops / 1e12:.4f} TFLOP at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s), "
+          f"{bound_ms / device_ms:.3f} of it")
+    # card against CPU on a 400^2 crop: the dense picker is shift-equivariant,
+    # so away from the crop's edges (pad = width // 2) its map is the full map's
+    shapes = {os.path.splitext(os.path.basename(p))[0]: mrc.read(p)[0].shape for p in binned}
+    name = os.path.splitext(os.path.basename(binned[0]))[0]
+    h, w = shapes[name]
+    y0, x0, n = h // 4, w // 4, min(400, h // 2, w // 2)
+    crop = os.path.join(workdir, "crop.mrc")
+    mrc.write(crop, mrc.read(binned[0])[0][y0:y0 + n, x0:x0 + n])
+    t0 = time.perf_counter()
+    cpu = next(score_maps("resnet16_u32", [crop], device="cpu"))[1][pad:n - pad, pad:n - pad]
+    cpu_s = time.perf_counter() - t0
+    for tag, got in maps.items():
+        if sorted(got) != sorted(shapes) or not all(
+                got[k].shape == shapes[k] and np.isfinite(got[k]).all() for k in got):
+            fail(f"segment {tag}: maps {sorted(got)}")
+        card = got[name][y0 + pad:y0 + n - pad, x0 + pad:x0 + n - pad]
+        err = float((np.abs(card - cpu) / np.maximum(1, np.abs(cpu))).max())
+        print(f"# tools: segment {tag} card vs cpu on a {n}^2 crop's interior {cpu.shape} "
+              f"(cpu {cpu_s:.3f} s): max diff {err:.3e} x max(1, |score|)")
+        if err > PIPELINE_TOL:
+            fail(f"segment {tag}: card against CPU {err}")
+
+    (tomo, _), _ = write_tomograms(workdir, TOMO_SHAPE, "seg3d")
+    ckpt = os.path.join(workdir, "picker3d.npz")
+    save_picker(ckpt, new_picker("resnet8", units=32, dims=3, seed=SEED, device="cuda"))
+    out = os.path.join(workdir, "seg3d")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli(["segment", "-m", ckpt, "-p", "48", "-o", out, "-d", "0", tomo])
+    dt = time.perf_counter() - t0
+    got = np.load(os.path.join(out, "seg3d_even.npy"))
+    want = classify_patches_3d(load_picker(ckpt, device="cuda"), mrc.read(tomo)[0],
+                               96).cpu().numpy()
+    err = float((np.abs(got - want) / np.maximum(1, np.abs(want))).max())
+    print(f"# tools: segment -p 48 (tiles of 96^3) of a {TOMO_SHAPE} tomogram, 3D resnet8 "
+          f"units 32: {dt:.3f} s, .npy {got.shape}; against classify_patches_3d max diff "
+          f"{err:.3e} x max(1, |score|)")
+    if got.shape != TOMO_SHAPE or not np.isfinite(got).all() or err > PIPELINE_TOL:
+        fail(f"segment 3D: {got.shape}, finite {np.isfinite(got).all()}, library {err}")
+
+
+def run_handoff(workdir: str, raw, picks):
+    """The RELION handoff on the .sav run's picks: ``convert -x 4 --to
+    star`` with microscope columns, ``star_particles_threshold``, ``split``,
+    ``coordinates_to_boxes`` then ``boxes_to_coordinates`` (the
+    coordinates come back), ``particle_stack --size 256`` with ``--metadata``
+    and without, then with ``--resize 64`` on the card and on the CPU, held
+    within STACK_TOL."""
+    import glob
+
+    import numpy as np
+
+    from topaz_tpu_torch.cli.main import main as cli
+    from topaz_tpu_torch.io import mrc
+
+    def timed(argv):
+        t0 = time.perf_counter()
+        cli(argv)
+        return time.perf_counter() - t0
+
+    _, rows = read_table_rows(picks)
+    scores = sorted((float(r[3]) for r in rows), reverse=True)
+    threshold = scores[min(len(scores), STACK_PARTICLES * len(raw)) - 1]
+    star = os.path.join(workdir, "picks.star")
+    steps = {"convert": timed(["convert", "-x", str(K3_BIN), "--to", "star", "--voltage", "300",
+                               "--detector-pixel-size", "5", "-o", star, picks])}
+    kept = os.path.join(workdir, "kept.star")
+    steps["star_particles_threshold"] = timed(["star_particles_threshold", "-t",
+                                               repr(threshold), "-o", kept, star])
+    os.makedirs(os.path.join(workdir, "split"))
+    steps["split"] = timed(["split", kept, "-o", os.path.join(workdir, "split")])
+    unbinned = os.path.join(workdir, "unbinned.txt")
+    steps["convert --to coord"] = timed(["convert", "-x", str(K3_BIN), "-t", repr(threshold),
+                                         "--to", "coord", "-o", unbinned, picks])
+    boxes = os.path.join(workdir, "boxes")
+    steps["coordinates_to_boxes"] = timed(["coordinates_to_boxes", unbinned, "--destdir", boxes,
+                                           "--boxsize", str(STACK_SIZE)])
+    back = os.path.join(workdir, "back.txt")
+    steps["boxes_to_coordinates"] = timed(["boxes_to_coordinates", "-o", back]
+                                          + sorted(glob.glob(os.path.join(boxes, "*.box"))))
+    _, want = read_table_rows(unbinned)
+    _, got = read_table_rows(back)
+    n = len(want)
+    split_files = sorted(os.listdir(os.path.join(workdir, "split")))
+    with open(kept) as f:
+        kept_rows = [line for line in f
+                     if line.strip() and not line.startswith(("data_", "loop_", "_"))]
+    if (sorted(r[:3] for r in got) != sorted(r[:3] for r in want) or len(kept_rows) != n
+            or split_files != [f"k3_{i}.star" for i in range(len(raw))]):
+        fail(f"handoff: {n} picks kept, {len(kept_rows)} in the STAR file, {len(got)} back "
+             f"from the boxes, split files {split_files}")
+    with open(star) as f:
+        text = f.read()
+    if "_rlnVoltage" not in text or "_rlnDetectorPixelSize" not in text:
+        fail("handoff: convert --to star wrote no microscope columns")
+    print(f"# tools: handoff of {n} picks (threshold {threshold!r}): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items())
+          + "; the boxes give back the coordinates")
+
+    meta = os.path.join(workdir, "meta.star")
+    with open(meta, "w") as f:
+        print("data_\nloop_\n_rlnMicrographName #1\n_rlnDetectorPixelSize #2\n"
+              "_rlnVoltage #3\n_rlnSphericalAberration #4", file=f)
+        for i in range(len(raw)):
+            print(f"k3_{i}.mrc\t5.0\t300\t2.7", file=f)
+    root = os.path.dirname(raw[0])
+    stacks = {}
+    for tag, extra in (("full", []), ("resize card", ["--resize", str(STACK_RESIZE), "-d", "0"]),
+                       ("resize cpu", ["--resize", str(STACK_RESIZE), "-d", "cpu"])):
+        # one name in its own directory: the STAR file's ImageName holds it
+        os.makedirs(os.path.join(workdir, tag.replace(" ", "_")))
+        out = os.path.join(workdir, tag.replace(" ", "_"), "stack.mrcs")
+        dt = timed(["particle_stack", unbinned, "-o", out, "--image-root", root, "--size",
+                    str(STACK_SIZE), "--metadata", meta] + extra)
+        stack = mrc.read(out)[0]
+        with open(os.path.splitext(out)[0] + ".star") as f:
+            stacks[tag] = (stack, f.read())
+        side = STACK_RESIZE if extra else STACK_SIZE
+        # a crop is standardized over its part inside the micrograph and
+        # zero outside, so only a resized crop (standardized again) has std 1
+        std = stack.reshape(len(stack), -1).std(axis=1)
+        print(f"# tools: particle_stack --size {STACK_SIZE} {tag}: {n} particles in {dt:.3f} s, "
+              f"{n / dt:.1f} particles/s; crop std {std.min():.4f}-{std.max():.4f}")
+        if stack.shape != (n, side, side) or not np.isfinite(stack).all() or std.max() > 1.001 \
+                or np.median(std) < 0.999 or (extra and std.min() < 0.999):
+            fail(f"particle_stack {tag}: {stack.shape}, crop std {std.min()}-{std.max()}")
+    card, cpu = stacks["resize card"], stacks["resize cpu"]
+    err = float(np.abs(card[0].astype(np.float64) - cpu[0]).max())
+    print(f"# tools: particle_stack --resize {STACK_RESIZE} card vs cpu: max abs diff {err:.3e}; "
+          f"STAR files equal {card[1] == cpu[1]}")
+    if err > STACK_TOL or card[1] != cpu[1] or f"\t{5.0 * (STACK_SIZE / STACK_RESIZE)!r}\t" \
+            not in card[1]:
+        fail(f"particle_stack --resize card against CPU: {err}, STAR files equal "
+             f"{card[1] == cpu[1]}")
+
+
+def run_tools(workdir: str):
+    """Phase ``tools``: 4 unbinned K3 micrographs binned 4x by ``preprocess
+    -s 4``; ``.sav`` -> extract; ``segment`` in 2D and 3D; the RELION
+    handoff through the coordinate tools and ``particle_stack``. Returns
+    the disk_max launches of ``extract -m x.sav``."""
+    from topaz_tpu_torch.cli.main import main as cli
+
+    raw = write_k3_micrographs(workdir)
+    binned_dir = os.path.join(workdir, "binned")
+    t0 = time.perf_counter()
+    cli(["preprocess", "-s", str(K3_BIN), "-o", binned_dir, "-d", "0"] + raw)
+    print(f"# tools: preprocess -s {K3_BIN} of {len(raw)} micrographs: "
+          f"{time.perf_counter() - t0:.3f} s")
+    binned = [os.path.join(binned_dir, os.path.basename(p)) for p in raw]
+    launches, picks = run_sav_extract(workdir, binned)
+    run_segment(workdir, binned)
+    run_handoff(workdir, raw, picks)
+    return launches
+
+
 # the phases after the kernel check, in order; ``--only`` runs some of them
 PHASES = ("slice", "denoise", "pipeline", "training", "extract_targets", "train_ae",
-          "denoise_train", "denoise3d", "extract3d", "train3d")
+          "denoise_train", "denoise3d", "extract3d", "train3d", "tools")
 
 
 def main() -> None:
@@ -2203,6 +2546,11 @@ def main() -> None:
             t = time.perf_counter()
             launches["train3d"] = run_train3d(workdir)
             print(f"# train3d phase: {time.perf_counter() - t:.1f} s")
+    if want("tools"):
+        with tempfile.TemporaryDirectory() as workdir:
+            t = time.perf_counter()
+            launches["tools"] = run_tools(workdir)
+            print(f"# tools phase: {time.perf_counter() - t:.1f} s")
     if "jax" in sys.modules or "topaz_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
 
@@ -2222,7 +2570,8 @@ def main() -> None:
                              "denoise3d": launches["denoise3d"],
                              "extract_targets": launches["extract_targets"],
                              "extract3d": launches["extract3d"],
-                             "train3d": launches["train3d"], "train_ae": launches["train_ae"]},
+                             "train3d": launches["train3d"], "train_ae": launches["train_ae"],
+                             "sav_extract": launches["tools"]},
         "max_abs_err": err, "shape": list(BATCHED_SHAPES[-1]), "r": RADIUS,
         "ms": batched["ms"], "plain_ms": batched["plain_ms"],
         "eager_ms": batched["eager_ms"], "plain_eager_ms": batched["plain_eager_ms"],

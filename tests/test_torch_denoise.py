@@ -141,9 +141,14 @@ def test_bundled_denoisers_match_jax(alias, capsys):
 
 
 def test_load_denoiser_refuses_what_is_not_ported(tmp_path):
+    """A file that is no checkpoint raises the .sav reader's error (the
+    reader itself: tests/test_torch_sav.py); a missing file or the 3D
+    aliases, whose weights are not in the repo, raise FileNotFoundError."""
+    from topaz_tpu_torch.models.convert import SavFormatError
+
     sav = tmp_path / "model.sav"
     sav.write_bytes(b"\x80\x02")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(SavFormatError, match="does not read this file"):
         tfactory.load_denoiser(str(sav), device="cpu")
     with pytest.raises(FileNotFoundError):
         tfactory.load_denoiser(str(tmp_path / "missing.npz"), device="cpu")

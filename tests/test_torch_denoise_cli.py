@@ -83,9 +83,8 @@ def test_suffix_and_stack_outputs(tmp_path):
 @pytest.mark.parametrize("argv", [
     ["denoise", "-d", "-2", "-o", "{d}", "{d}/mic.mrc"],
     ["denoise3d", "-d", "-2", "-o", "{d}", "{d}/mic.mrc"],
-    ["denoise", "-d", "cpu", "-m", "{d}/model.sav", "-o", "{d}", "{d}/mic.mrc"],
-    ["train", "-d", "cpu", "--dims", "3", "-m", "{d}/model.sav", "--train-images", "{d}",
-     "--train-targets", "{d}/targets.txt"],
+    ["segment", "-d", "-2", "-m", "resnet8_u32", "-o", "{d}", "{d}/mic.mrc"],
+    ["watch", "{d}"],
 ])
 def test_not_ported_paths_exit_with_an_error(tmp_path, argv):
     (tmp_path / "model.sav").write_bytes(b"\x80\x02")

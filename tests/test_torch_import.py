@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the JAX
-package (nor pandas, nor h5py, which only the ``--hdf`` sampler imports),
-no port file imports them, and its entry points raise rather than fall back
+package (nor pandas, nor h5py, which only the ``--hdf`` sampler imports,
+nor PIL, which only the image writers and readers import, inside their
+functions), no port file imports them, and its entry points raise rather than fall back
 to the CPU when no CUDA device is there."""
 
 import ast
@@ -36,7 +37,7 @@ def test_import_loads_no_jax_nor_jax_package():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'topaz_tpu', 'pandas', 'h5py'))\n"
+        "('jax', 'jaxlib', 'topaz_tpu', 'pandas', 'h5py', 'PIL'))\n"
         "print(len([m for m in sys.modules if m.startswith('topaz_tpu_torch')]), bad)\n"
         "print(' '.join(sorted(m for m in sys.modules if m.startswith('topaz_tpu_torch'))))\n"
         "sys.exit(1 if bad else 0)\n"
@@ -52,7 +53,12 @@ def test_import_loads_no_jax_nor_jax_package():
             "topaz_tpu_torch.denoise", "topaz_tpu_torch.models.denoise_factory",
             "topaz_tpu_torch.models.tiling", "topaz_tpu_torch.cli.commands.downsample",
             "topaz_tpu_torch.models.generative",
-            "topaz_tpu_torch.cli.commands.precision_recall_curve"} <= scanned
+            "topaz_tpu_torch.cli.commands.precision_recall_curve",
+            "topaz_tpu_torch.io.table", "topaz_tpu_torch.models.convert",
+            "topaz_tpu_torch.segment", "topaz_tpu_torch.cli.commands.convert",
+            "topaz_tpu_torch.cli.commands.particle_stack", "topaz_tpu_torch.cli.commands.gui",
+            "topaz_tpu_torch.cli.commands.segment",
+            "topaz_tpu_torch.cli.commands.train_test_split"} <= scanned
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():

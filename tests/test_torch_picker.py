@@ -79,9 +79,14 @@ def test_resnet8_u32_pretrained_matches_jax():
 
 
 def test_load_picker_refuses_what_is_not_ported(tmp_path):
+    """A file that is no checkpoint raises the .sav reader's error (the
+    reader itself: tests/test_torch_sav.py); the u64 aliases, whose
+    weights are not in the repo, raise FileNotFoundError."""
+    from topaz_tpu_torch.models.convert import SavFormatError
+
     sav = tmp_path / "model.sav"
     sav.write_bytes(b"not a checkpoint")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(SavFormatError, match="does not read this file"):
         tfactory.load_picker(str(sav), device="cpu")
     with pytest.raises(FileNotFoundError, match="not bundled"):
         tfactory.load_picker("resnet16", device="cpu")

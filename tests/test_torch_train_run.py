@@ -156,7 +156,6 @@ def test_train_cli_runs_in_a_subprocess(tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["-d", "-2"], "P14"),
-    (["-m", "{d}/model.sav", "-d", "cpu"], "P13"),
 ])
 def test_unported_paths_exit_naming_their_item(tmp_path, flags, item):
     (tmp_path / "model.sav").write_bytes(b"")

@@ -7,10 +7,12 @@ package imports neither JAX nor anything of ``topaz_tpu``; it reads the
 bundled picker and denoiser weights (topaz_tpu/pretrained/{detector,denoise}/
 *.npz) by path.
 
-Ported so far, for 2D micrographs: preprocess (Fourier downsample + GMM
-normalization), extract (dense picker scoring + greedy NMS, with the NMS
-disk max-filter as a hand-written CUDA kernel, csrc/disk_max.cu), and
-denoise inference (the noise2noise U-Nets and the classical filters).
+Every command of the JAX CLI but ``watch``, ``serve`` and ``warmup`` is
+ported (``cli/main.py``): picking in 2D and 3D (the NMS disk max-filter is
+a hand-written CUDA kernel, csrc/disk_max.cu), the batched pipeline,
+denoising and denoiser training, picker training, ``segment``, ``gui`` and
+the coordinate tools; reference ``.sav`` models are read without
+unpickling code (``models/convert.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,8 @@
 """topaz train (topaz/commands/train.py): PU picker training on micrographs
 or tomograms (--dims 3, --augment-3d), with the autoencoder regularizer
-(--autoencoder), with the JAX CLI's flags and defaults. The paths this port
-does not run yet exit with a not-yet-ported error naming their ROADMAP item:
--d -2 (P14) and a .sav --model (P13)."""
+(--autoencoder), with the JAX CLI's flags and defaults; --model takes an
+.npz checkpoint or a reference .sav. -d -2 exits with a not-yet-ported
+error naming its ROADMAP item (P14)."""
 import argparse
 
 from topaz_tpu_torch.device import parse_device_flag

@@ -1,5 +1,5 @@
 """Minimal RELION STAR reading and writing, without pandas (port of
-topaz_tpu/io/star.py:17-111, the reference's topaz/utils/star.py:19-98).
+topaz_tpu/io/star.py:17-131, the reference's topaz/utils/star.py:19-98).
 
 ``parse`` reads the first ``data_`` block's ``loop_`` table: 'rln' prefixes
 and '#' comments come off the column names, the legacy 'ParticleScore'
@@ -10,9 +10,12 @@ table is a dict of numpy columns in file order. ``write`` writes a
 
 from __future__ import annotations
 
-from typing import IO, Dict
+import sys
+from typing import IO, Dict, Optional
 
 import numpy as np
+
+from topaz_tpu_torch.io.table import Table
 
 X_COLUMN_NAME = "CoordinateX"
 Y_COLUMN_NAME = "CoordinateY"
@@ -91,13 +94,35 @@ def parse(f: IO[str]) -> Dict[str, np.ndarray]:
     return table
 
 
-def write(table: Dict[str, np.ndarray], f: IO[str]) -> None:
-    """Write a data_images loop (topaz/utils/star.py:91-98)."""
+def write(table, f: IO[str]) -> None:
+    """Write a data_images loop (topaz/utils/star.py:91-98) of a
+    ``Table`` or a {column: array} dict, each value as pandas' ``to_csv``
+    prints it (float32 in its shortest form, NaN as an empty field)."""
+    if not isinstance(table, Table):
+        table = Table(table)
     print("data_images", file=f)
     print("loop_", file=f)
-    names = list(table)
-    for i, name in enumerate(names):
+    for i, name in enumerate(table.columns):
         print(f"_rln{name} #{i + 1}", file=f)
-    # numpy scalars print as pandas' to_csv prints them (float32 shortest)
-    for row in zip(*(np.asarray(table[n]) for n in names)):
-        print("\t".join(str(v) for v in row), file=f)
+    table.write_csv(f, header=False)
+
+
+def threshold_star_particles(input_file: str, threshold: float,
+                             output_file: Optional[str] = None) -> None:
+    """Keep the particles of a STAR file whose score is at least
+    ``threshold``, every column kept (topaz_tpu/io/star.py:114-131); the
+    score is AutopickFigureOfMerit, else the legacy ParticleScore."""
+    with open(input_file) as f:
+        particles = Table(parse(f))
+    n = len(particles)
+    col = SCORE_COLUMN_NAME if SCORE_COLUMN_NAME in particles else OLD_SCORE_COLUMN_NAME
+    particles[col] = particles[col].astype(float)
+    particles = particles.take(particles[col] >= threshold)
+    print(f"# filtered {n} particles to {len(particles)} with threshold of {threshold}",
+          file=sys.stderr)
+    out = sys.stdout if output_file is None else open(output_file, "w")
+    try:
+        write(particles, out)
+    finally:
+        if output_file is not None:
+            out.close()

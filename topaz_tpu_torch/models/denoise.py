@@ -244,6 +244,15 @@ def arch_layout(arch: str, nf: int = 48, base_width: int = 11,
     raise ValueError(f"unknown denoiser arch: {arch}")
 
 
+def denoiser_params_from_state_dict(sd: Dict[str, np.ndarray]) -> Dict:
+    """A torch denoiser state dict (enc1.0.weight, ...; the affine model's
+    filter.weight) as the JAX package's tree (topaz_tpu/models/denoise.py:
+    436-441)."""
+    from topaz_tpu_torch.models.convert import params_tree_from_state_dict
+
+    return params_tree_from_state_dict(sd, allow_bn=False)
+
+
 def infer_denoiser_arch(sd: Dict[str, np.ndarray], class_name: str = None) -> Dict:
     """Guess (arch, nf, base_width, top_width, dims) from state-dict shapes.
 

@@ -104,8 +104,9 @@ def _pretrained_path(stem: str) -> str:
 
 
 def load_denoiser(name_or_path: str, device="cuda") -> nn.Module:
-    """Load a denoiser by pretrained alias or ``.npz`` checkpoint path, in
-    eval mode on ``device``; its meta dict (arch, widths, dims) is
+    """Load a denoiser by pretrained alias, ``.npz`` checkpoint path or
+    reference ``.sav`` path (``models.convert``, which never unpickles
+    code), in eval mode on ``device``; its meta dict (arch, widths, dims) is
     ``.meta``."""
     from topaz_tpu_torch.device import resolve_device
 
@@ -127,8 +128,8 @@ def load_denoiser(name_or_path: str, device="cuda") -> nn.Module:
                 f"denoising model {name_or_path!r} is neither a pretrained alias "
                 f"({sorted(PRETRAINED_DENOISERS)}) nor a file")
         if not path.endswith(".npz"):
-            raise NotImplementedError(
-                f"{path}: reading reference .sav denoisers is not yet ported "
-                f"to topaz_tpu_torch (ROADMAP P13); only .npz checkpoints load")
+            from topaz_tpu_torch.models.convert import convert_denoiser_sav
+
+            return denoiser_from_numpy(*convert_denoiser_sav(path)).to(device)
     meta, trees = load_checkpoint(path)
     return denoiser_from_numpy(meta, trees["params"]).to(device)

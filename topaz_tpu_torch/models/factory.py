@@ -141,8 +141,10 @@ def picker_from_numpy(spec: PickerSpec, params: Dict, state: Dict) -> Picker:
 
 
 def load_picker(name_or_path: str, device="cuda") -> Picker:
-    """Load a picker by pretrained alias or ``.npz`` checkpoint path, in
-    eval mode on ``device``."""
+    """Load a picker by pretrained alias, ``.npz`` checkpoint path or
+    reference ``.sav`` path (state dict or whole pickled module, read by
+    ``models.convert`` without unpickling code), in eval mode on
+    ``device``."""
     from topaz_tpu_torch.device import resolve_device
 
     device = resolve_device(device)
@@ -159,14 +161,14 @@ def load_picker(name_or_path: str, device="cuda") -> Picker:
         raise FileNotFoundError(
             f"model {name_or_path!r} is neither a pretrained alias "
             f"({sorted(PRETRAINED_PICKERS)}) nor a file")
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: only .npz picker checkpoints load in topaz_tpu_torch; "
-            f"reading reference .sav checkpoints is not yet ported")
-    meta, trees = load_checkpoint(path)
-    spec = _spec_from_meta(meta)
-    model = picker_from_numpy(spec, trees["params"], trees.get("state", {"features": {}}))
-    return model.to(device)
+    if path.endswith(".npz"):
+        meta, trees = load_checkpoint(path)
+        params, state = trees["params"], trees.get("state", {"features": {}})
+    else:
+        from topaz_tpu_torch.models.convert import convert_picker_sav
+
+        meta, params, state = convert_picker_sav(path)
+    return picker_from_numpy(_spec_from_meta(meta), params, state).to(device)
 
 
 def save_picker(path: str, model: Picker, decoder=None) -> None:

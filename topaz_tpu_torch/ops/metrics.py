@@ -106,7 +106,7 @@ def _read_table(path: str, comment: bool = False) -> Dict[str, np.ndarray]:
     """A tab-separated table as pandas' ``read_csv(sep="\\t")`` types it
     (``parse_column``); with ``comment``, text from a '#' on is dropped and
     lines left empty are skipped (``comment="#"``)."""
-    from topaz_tpu_torch.io.coordinates import parse_column
+    from topaz_tpu_torch.io.table import parse_column
 
     with open(path) as f:
         lines = [line.rstrip("\r\n") for line in f]

@@ -32,8 +32,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from topaz_tpu_torch.io.coordinates import Coordinates, parse_column
+from topaz_tpu_torch.io.coordinates import Coordinates
 from topaz_tpu_torch.io.mrc import MrcMemmap
+from topaz_tpu_torch.io.table import parse_column
 from topaz_tpu_torch.utils.printing import report
 
 

@@ -131,11 +131,7 @@ def make_model_from_args(args, device):
     from fresh ones, where the JAX package loads the 2D weights into a 3D
     run that then fails at its first step."""
     report("Loading model:", args.model)
-    if args.model.endswith(".sav"):
-        raise NotImplementedError(
-            f"{args.model}: reading reference .sav checkpoints is not yet ported to "
-            f"topaz_tpu_torch (ROADMAP P13); give an .npz checkpoint")
-    if args.model.endswith(".npz"):
+    if args.model.endswith(".sav") or args.model.endswith(".npz"):
         return load_picker(args.model, device=device)
 
     report(f"Model parameters: units={args.units}, dropout={args.dropout}, bn={args.bn}")
