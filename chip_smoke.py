@@ -145,7 +145,28 @@ Phases, in order; any failure exits non-zero before a result is printed:
    best picks on the unbinned micrographs, without and with ``--resize 64``
    on the card and on the CPU (pixels within ``STACK_TOL``, STAR files
    equal); particles a second of each.
-14. Print the kernels line, the card line, and last the result line.
+14. The services (``run_services``, phase ``services``): 12 synthetic MRCs
+   (seed 600), 6 of 4096^2 and 6 of 5760 x 4092, with the CLI defaults
+   (``resnet16_u32``, ``-s 8 -r 14 -t -6``, ``unet``). ``warmup
+   --denoise-model unet --shapes 4096x4096,5760x4092 --batch-sizes 1,8``
+   through the CLI (wall, programs, disk_max launches); a ``TopazService``
+   behind ``make_server(port=0)`` in this process: ``/healthz`` names the
+   card, the 12 files to ``/extract`` one at a time and in 3 rounds of 8
+   concurrent requests (p50/p95 latency and requests a second; the largest
+   batch must exceed 1; picks equal the direct pipeline's x 8 under the
+   near-tie rule and ``PIPELINE_TOL``), ``/denoise`` of 4 then 8 concurrent
+   4096^2 frames, each round one batch (the route it took, the peak
+   memory; within 1e-3 x std of ``Denoise("unet").denoise(x,
+   patch_size=0)``), ``/metrics`` against ``/healthz``; ``python -m
+   topaz_tpu_torch serve --port 0`` in a subprocess (one ``/extract``, then
+   SIGTERM: exit 0); ``watch DIR -o picks.txt --batch-size 8 --once
+   --poll-interval 0.5`` on the 12, then on 4 new files (only they, one
+   header, picks equal the pipeline's x 8; micrographs a second); last
+   ``exact_non_maximum_suppression`` (the literal greedy order, no kernel)
+   against ``non_maximum_suppression`` (the kernel's rounds) on the
+   pipeline's 12 score maps: identical. Each of the three paths must launch
+   the disk max.
+15. Print the kernels line, the card line, and last the result line.
 
 ``--only PHASE ...`` runs the kernel check and those phases alone and
 prints no result line (for trying a phase on the card).
@@ -225,6 +246,14 @@ STACK_SIZE, STACK_RESIZE, STACK_PARTICLES = 256, 64, 200
 # values are ~N(0, 1); cuFFT and pocketfft and two sum orders of the
 # standardization differ by ~1e-6
 STACK_TOL = 1e-4
+# the services phase: 6 micrographs of each geometry (a 4096^2 frame and a
+# K3 frame) and 4 that arrive later for watch; rounds of concurrent
+# /extract requests; /denoise rounds of 4 and 8 concurrent 4096^2 frames
+# (one 4096^2 U-Net forward peaks at 14.1-15.6 GiB: 4 fit in one batch, 8
+# do not)
+SERVICE_GEOMETRIES, SERVICE_FILES, SERVICE_ARRIVALS = [(4096, 4096), (5760, 4092)], 6, 4
+SERVICE_ROUNDS, SERVICE_CONCURRENCY = 3, 8
+SERVICE_DENOISE_BATCHES = (4, 8)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 
@@ -581,9 +610,10 @@ def run_denoise(workdir: str):
             fail(f"denoise {side}^2: shape {card.shape}, card vs cpu max abs diff {err}")
 
 
-def write_micrographs(workdir: str, rng, geometries, per_geometry: int):
+def write_micrographs(workdir: str, rng, geometries, per_geometry: int, prefix: str = "mic"):
     """Gaussian-noise MRCs with 40 planted particles each (a local 3 sigma
-    dip, radius ~24 px raw), geometries taken in turn."""
+    dip, radius ~24 px raw), geometries taken in turn, named
+    ``<prefix>NN.mrc``."""
     import numpy as np
 
     from topaz_tpu_torch.io import mrc
@@ -598,7 +628,7 @@ def write_micrographs(workdir: str, rng, geometries, per_geometry: int):
         my, mx = (min(300, max(w, d // 4)) for d in (h, wd))
         for cy, cx in zip(rng.integers(my, h - my, size=40), rng.integers(mx, wd - mx, size=40)):
             x[cy - w:cy + w, cx - w:cx + w] -= blob
-        paths.append(os.path.join(workdir, f"mic{i:02d}.mrc"))
+        paths.append(os.path.join(workdir, f"{prefix}{i:02d}.mrc"))
         mrc.write(paths[-1], x)
     return paths
 
@@ -2449,9 +2479,388 @@ def run_tools(workdir: str):
     return launches
 
 
+def http_post(url: str, body: bytes, timeout: float = 600):
+    """POST an MRC body; returns (status, response bytes)."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST",
+                                 headers={"Content-Type": "application/x-mrc"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def http_json(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def concurrent_requests(fn, items):
+    """``fn(item)`` in a thread each, all started together; returns (results,
+    latencies in s, wall s). Fails on any error or a request left hanging."""
+    import threading
+
+    results, lat, errors = [None] * len(items), [0.0] * len(items), []
+
+    def run(i):
+        t0 = time.perf_counter()
+        try:
+            results[i] = fn(items[i])
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"{items[i]}: {type(e).__name__}: {e}")
+        lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(items))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"concurrent requests: {errors or 'a request did not return'}")
+    return results, lat, wall
+
+
+def latency_line(tag: str, lat, wall: float):
+    import numpy as np
+
+    p50, p95 = np.percentile(lat, [50, 95])
+    print(f"# services: {tag}: {len(lat)} requests in {wall:.3f} s, {len(lat) / wall:.3f} "
+          f"requests/s, latency p50 {p50 * 1e3:.1f} ms, p95 {p95 * 1e3:.1f} ms")
+
+
+def served_picks(resp):
+    return {(p["x"], p["y"]): p["score"] for p in resp["picks"]}
+
+
+def scaled(picks, factor: int):
+    return {(x * factor, y * factor): s for (x, y), s in picks.items()}
+
+
+def run_services(workdir: str, device: str = "0"):
+    """Phase ``services``: warmup, serve (in this process, then the CLI in
+    a subprocess) and watch on synthetic micrographs with the CLI defaults
+    (resnet16_u32, ``-s 8 -r 14 -t -6``, unet); then exact greedy NMS
+    against the kernel's rounds on the pipeline's score maps. Returns the
+    disk_max launches of the warmup, serve and watch paths."""
+    import queue
+    import re
+    import signal
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import topaz_tpu_torch.pipeline as pipeline_mod
+    from topaz_tpu_torch.denoise import Denoise
+    from topaz_tpu_torch.io import mrc
+    from topaz_tpu_torch.ops import disk_max as dm
+    from topaz_tpu_torch.ops.nms import exact_non_maximum_suppression, non_maximum_suppression
+    from topaz_tpu_torch.cli.main import main as cli
+    from topaz_tpu_torch.serve import TopazService, make_server
+
+    cuda = device != "cpu"
+    svc_device = int(device) if cuda else "cpu"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    launches = {}
+    frames = os.path.join(workdir, "frames")
+    os.makedirs(frames)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 600)
+    paths = write_micrographs(frames, rng, SERVICE_GEOMETRIES, SERVICE_FILES)
+    print(f"# services: wrote {len(paths)} MRCs {SERVICE_GEOMETRIES} in "
+          f"{time.perf_counter() - t0:.3f} s")
+    factor = 8
+    pipe_kw = dict(model="resnet16_u32", scale=factor, radius=RADIUS, threshold=THRESHOLD,
+                   device=svc_device)
+
+    # 1. warmup through the CLI in this process
+    shapes = ",".join(f"{h}x{w}" for h, w in SERVICE_GEOMETRIES)
+    dm.launches = 0
+    t0 = time.perf_counter()
+    _, err = cli_captured(["warmup", "--denoise-model", "unet", "--shapes", shapes,
+                           "--batch-sizes", "1,8", "-d", device])
+    sync()
+    launches["warmup"] = dm.launches
+    wall = time.perf_counter() - t0
+    for line in err.splitlines():
+        if line.startswith("# warmup"):
+            print(f"#   | {line}")
+    done = re.search(r"warmup: (\d+) programs run once", err)
+    n_programs = int(done.group(1)) if done else 0
+    print(f"# services: warmup {wall:.3f} s, {n_programs} programs, disk_max launches "
+          f"{launches['warmup']}")
+    # on the CPU (a rehearsal) the plain disk max runs: no launches
+    if n_programs != 3 * len(SERVICE_GEOMETRIES) or (cuda and launches["warmup"] <= 0):
+        fail(f"warmup: {n_programs} programs, {launches['warmup']} disk_max launches")
+
+    # 2. the service in this process, as serve runs it (the CLI's defaults)
+    bodies = {}
+    for p in paths:
+        with open(p, "rb") as f:
+            bodies[p] = f.read()
+    service = TopazService(denoise_model="unet", device=svc_device)
+    server = make_server(service, port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def extract(p):
+        return json.loads(http_post(base + "/extract", bodies[p])[1])
+
+    try:
+        health = http_json(base + "/healthz")
+        want = torch.cuda.get_device_name(service.device) if cuda else "cpu"
+        print(f"# services: /healthz device {health['device']} ({health['device_name']})")
+        if health["device_name"] != want:
+            fail(f"/healthz names {health['device_name']!r}, the card is {want!r}")
+        dm.launches = 0
+        serial, lat = {}, []
+        t_all = time.perf_counter()
+        for p in paths:
+            t0 = time.perf_counter()
+            serial[p] = extract(p)
+            lat.append(time.perf_counter() - t0)
+        latency_line("/extract one at a time", lat, time.perf_counter() - t_all)
+        rounds = []
+        for k in range(SERVICE_ROUNDS):
+            items = [paths[(SERVICE_CONCURRENCY * k + j) % len(paths)]
+                     for j in range(SERVICE_CONCURRENCY)]
+            res, lat, wall = concurrent_requests(extract, items)
+            latency_line(f"/extract round {k + 1}, {SERVICE_CONCURRENCY} concurrent", lat, wall)
+            rounds.append(dict(zip(items, res)))
+        sync()
+        launches["serve"] = dm.launches
+        print(f"# services: /extract: {service.n_batches} device batches, largest "
+              f"{service.max_batch_seen}; disk_max launches {launches['serve']}")
+        if service.max_batch_seen <= 1 or (cuda and launches["serve"] <= 0):
+            fail(f"serve: largest batch {service.max_batch_seen}, "
+                 f"{launches['serve']} disk_max launches")
+
+        # the direct pipeline on the same files; its score maps are kept
+        maps, nms_batched = [], pipeline_mod.nms_topk_batched
+
+        def keep(scores, r, t, k):
+            maps.append(scores.clone())
+            return nms_batched(scores, r, t, k)
+
+        pipeline_mod.nms_topk_batched = keep
+        try:
+            direct = {p: picks_of(s, c) for p, s, c in pipeline_mod.MicrographPipeline(
+                **pipe_kw).process(paths, batch_size=BATCH)}
+        finally:
+            pipeline_mod.nms_topk_batched = nms_batched
+        err = conc = 0.0
+        for p in paths:
+            got = served_picks(serial[p])
+            if not got:
+                fail(f"serve: no picks for {p}")
+            err = max(err, compare_picks(got, scaled(direct[p], factor), tie=PIPELINE_TOL,
+                                         relative=True, labels=("served", "pipeline"),
+                                         radius=RADIUS * factor))
+            for rnd in rounds:
+                if p in rnd:
+                    conc = max(conc, compare_picks(
+                        served_picks(rnd[p]), got, tie=PIPELINE_TOL, relative=True,
+                        labels=("served in a round", "served alone"), radius=RADIUS * factor))
+        print(f"# services: served picks ({sum(len(served_picks(serial[p])) for p in paths)}) "
+              f"vs the pipeline x {factor}: matched scores max diff {err} x max(1, |score|); "
+              f"concurrent vs alone {conc}")
+        if err > PIPELINE_TOL or conc > PIPELINE_TOL:
+            fail(f"served picks: {err} against the pipeline, {conc} concurrent vs alone")
+
+        # /denoise of 4, then 8, concurrent full frames of the first geometry
+        den_paths = paths[::len(SERVICE_GEOMETRIES)]
+        reference = Denoise("unet", device=svc_device)
+        refs = {}
+        service.batch_window = 10.0  # each round in one batch, of its size
+        for n in SERVICE_DENOISE_BATCHES:
+            service.max_batch = n
+            items = [den_paths[j % len(den_paths)] for j in range(n)]
+            before = service.n_denoise_batches
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            res, lat, wall = concurrent_requests(
+                lambda p: http_post(base + "/denoise", bodies[p])[1], items)
+            sync()
+            peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+            h, w = SERVICE_GEOMETRIES[0]
+            latency_line(f"/denoise {n} concurrent {h}x{w}", lat, wall)
+            route = service._denoiser.last_route
+            print(f"# services: /denoise {n}: one batch of {service.max_denoise_batch_seen}, "
+                  f"route {route} (frames: the batch ran out of device memory and went one "
+                  f"frame at a time), peak {peak:.3f} GiB")
+            if service.n_denoise_batches != before + 1 or service.max_denoise_batch_seen != n:
+                fail(f"/denoise {n}: {service.n_denoise_batches - before} batches, largest "
+                     f"{service.max_denoise_batch_seen}")
+            rel = 0.0
+            for p, body in zip(items, res):
+                y = mrc.parse(body)[0]
+                if p not in refs:
+                    x = mrc.read(p)[0]
+                    refs[p] = reference.denoise(x, patch_size=0).cpu().numpy()
+                ref = refs[p]
+                if y.shape != ref.shape or not np.isfinite(y).all():
+                    fail(f"/denoise {p}: shape {y.shape}, finite {np.isfinite(y).all()}")
+                rel = max(rel, float(np.abs(y.astype(np.float64) - ref).max() / ref.std()))
+            print(f"# services: /denoise {n} vs Denoise('unet').denoise(x, patch_size=0): "
+                  f"max abs diff {rel:.3e} x std")
+            if rel > 1e-3:
+                fail(f"/denoise {n}: {rel} x std from the library call")
+        service.batch_window, service.max_batch = 0.02, 8
+
+        health = http_json(base + "/healthz")
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            text = r.read().decode()
+        sample = {ln.split()[0]: float(ln.split()[1]) for ln in text.splitlines()
+                  if ln and not ln.startswith("#")}
+        pairs = {"extract_requests_total": "extracted", "denoise_requests_total": "denoised",
+                 "device_batches_total": "device_batches", "largest_batch": "largest_batch",
+                 "denoise_batches_total": "denoise_batches",
+                 "largest_denoise_batch": "largest_denoise_batch",
+                 "device_timeouts_total": "device_timeouts",
+                 "worker_restarts_total": "worker_restarts"}
+        off = {m: (sample[f"topaz_{m}"], health[k]) for m, k in pairs.items()
+               if sample[f"topaz_{m}"] != health[k]}
+        n_extract = len(paths) + SERVICE_ROUNDS * SERVICE_CONCURRENCY
+        count = sample['topaz_request_duration_seconds_count{kind="extract"}']
+        print(f"# services: /metrics agrees with /healthz on {len(pairs) - len(off)} of "
+              f"{len(pairs)} numbers; {health['extracted']} extracted, {health['denoised']} "
+              f"denoised, {count:.0f} extract latencies")
+        if off or health["extracted"] != n_extract or count != n_extract \
+                or health["denoised"] != sum(SERVICE_DENOISE_BATCHES):
+            fail(f"/metrics vs /healthz: {off}; extracted {health['extracted']}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+
+    # 3. the serve CLI in a subprocess: one /extract, then SIGTERM
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "topaz_tpu_torch", "serve", "--port", "0",
+                             "-d", device], cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    lines: "queue.Queue" = queue.Queue()
+
+    def drain():
+        for line in proc.stderr:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=drain, daemon=True).start()
+    try:
+        port, deadline = None, time.monotonic() + 300
+        while port is None:
+            try:
+                line = lines.get(timeout=max(0.1, deadline - time.monotonic()))
+            except queue.Empty:
+                fail("serve CLI: no 'listening on' line within 300 s")
+            if line is None:
+                fail(f"serve CLI exited with {proc.wait()} before listening")
+            found = re.search(r"listening on http://[^:]+:(\d+)", line)
+            port = int(found.group(1)) if found else None
+        t_listen = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        resp = json.loads(http_post(f"http://127.0.0.1:{port}/extract", bodies[paths[0]])[1])
+        t_first = time.perf_counter() - t1
+        err = compare_picks(served_picks(resp), served_picks(serial[paths[0]]), tie=PIPELINE_TOL,
+                            relative=True, labels=("serve CLI", "in-process service"),
+                            radius=RADIUS * factor)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(f"# services: serve CLI listening after {t_listen:.3f} s, first /extract "
+          f"{t_first:.3f} s ({resp['count']} picks, {err} x max(1, |score|) from the "
+          f"in-process service); SIGTERM -> exit {rc}")
+    if rc != 0 or resp["count"] <= 0 or err > PIPELINE_TOL:
+        fail(f"serve CLI: exit {rc}, {resp['count']} picks, {err}")
+
+    # 4. watch --once through the CLI on the backlog, then on new arrivals
+    out = os.path.join(workdir, "watch", "picks.txt")
+    argv = ["watch", frames, "-o", out, "--batch-size", str(BATCH), "--once",
+            "--poll-interval", "0.5", "-d", device]
+    dm.launches = 0
+    t0 = time.perf_counter()
+    cli(argv)
+    sync()
+    dt1 = time.perf_counter() - t0
+    with open(out) as f:
+        n_first = len(f.read().splitlines())
+    new = write_micrographs(frames, np.random.default_rng(SEED + 601), SERVICE_GEOMETRIES,
+                            SERVICE_ARRIVALS // len(SERVICE_GEOMETRIES), prefix="late")
+    t0 = time.perf_counter()
+    cli(argv)
+    sync()
+    dt2 = time.perf_counter() - t0
+    launches["watch"] = dm.launches
+    with open(out) as f:
+        lines_out = f.read().splitlines()
+
+    def stems(ps):
+        return {os.path.splitext(os.path.basename(p))[0] for p in ps}
+
+    headers = sum(ln.startswith("image_name\t") for ln in lines_out)
+    first = {ln.split("\t")[0] for ln in lines_out[1:n_first]}
+    second = {ln.split("\t")[0] for ln in lines_out[n_first:]}
+    if headers != 1 or first != stems(paths) or second != stems(new):
+        fail(f"watch: {headers} headers; first run {sorted(first)}, second {sorted(second)}")
+    direct.update({p: picks_of(s, c) for p, s, c in pipeline_mod.MicrographPipeline(
+        **pipe_kw).process(new, batch_size=BATCH)})
+    table = read_table(out)
+    err = 0.0
+    for p in paths + new:
+        stem = os.path.splitext(os.path.basename(p))[0]
+        err = max(err, compare_picks(table[stem], scaled(direct[p], factor), tie=PIPELINE_TOL,
+                                     relative=True, labels=("watch", "pipeline"),
+                                     radius=RADIUS * factor))
+    print(f"# services: watch --once: {len(paths)} micrographs in {dt1:.3f} s "
+          f"({len(paths) / dt1:.3f} micrographs/s, one 0.5 s poll interval and the pipeline's "
+          f"construction included), then {len(new)} new in {dt2:.3f} s "
+          f"({len(new) / dt2:.3f}/s), only they; one header; disk_max launches "
+          f"{launches['watch']}; picks vs the pipeline x {factor}: {err} x max(1, |score|)")
+    if err > PIPELINE_TOL or (cuda and launches["watch"] <= 0):
+        fail(f"watch: picks {err} from the pipeline, {launches['watch']} disk_max launches")
+
+    # 5. exact greedy NMS against the kernel's rounds on the pipeline's maps
+    t0 = time.perf_counter()
+    n_maps = n_picks = 0
+    prev = None
+    for batch in maps:
+        for m in batch:
+            if prev is not None and torch.equal(m, prev):
+                continue  # a batch's last map repeated to fill it
+            prev = m
+            rs, rc_ = non_maximum_suppression(m, RADIUS, threshold=THRESHOLD, device=svc_device)
+            es, ec = exact_non_maximum_suppression(m, RADIUS, threshold=THRESHOLD,
+                                                   device=svc_device)
+            if not (np.array_equal(rs, es) and np.array_equal(rc_, ec)):
+                active = m[m > THRESHOLD]
+                fail(f"exact NMS: {len(es)} picks, the kernel's rounds {len(rs)}; equal "
+                     f"active scores: {active.numel() - torch.unique(active).numel()}")
+            n_maps += 1
+            n_picks += len(es)
+    sync()
+    print(f"# services: exact greedy NMS identical to the kernel's rounds on {n_maps} score "
+          f"maps of the pipeline ({n_picks} picks) in {time.perf_counter() - t0:.3f} s")
+    if n_maps != len(paths):
+        fail(f"exact NMS: {n_maps} maps for {len(paths)} micrographs")
+    return launches
+
+
 # the phases after the kernel check, in order; ``--only`` runs some of them
 PHASES = ("slice", "denoise", "pipeline", "training", "extract_targets", "train_ae",
-          "denoise_train", "denoise3d", "extract3d", "train3d", "tools")
+          "denoise_train", "denoise3d", "extract3d", "train3d", "tools",
+          "services")
 
 
 def main() -> None:
@@ -2490,7 +2899,7 @@ def main() -> None:
     print(f"# kernels built in {time.perf_counter() - t:.2f} s")
 
     err, single, batched = check_disk_max()
-    launches = dict.fromkeys(PHASES + ("train_extract",))
+    launches = dict.fromkeys(PHASES + ("train_extract", "warmup", "serve", "watch"))
     r100 = None
     if want("slice") or want("denoise"):
         with tempfile.TemporaryDirectory() as workdir:
@@ -2551,6 +2960,11 @@ def main() -> None:
             t = time.perf_counter()
             launches["tools"] = run_tools(workdir)
             print(f"# tools phase: {time.perf_counter() - t:.1f} s")
+    if want("services"):
+        with tempfile.TemporaryDirectory() as workdir:
+            t = time.perf_counter()
+            launches.update(run_services(workdir))
+            print(f"# services phase: {time.perf_counter() - t:.1f} s")
     if "jax" in sys.modules or "topaz_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
 
@@ -2571,7 +2985,8 @@ def main() -> None:
                              "extract_targets": launches["extract_targets"],
                              "extract3d": launches["extract3d"],
                              "train3d": launches["train3d"], "train_ae": launches["train_ae"],
-                             "sav_extract": launches["tools"]},
+                             "sav_extract": launches["tools"], "warmup": launches["warmup"],
+                             "serve": launches["serve"], "watch": launches["watch"]},
         "max_abs_err": err, "shape": list(BATCHED_SHAPES[-1]), "r": RADIUS,
         "ms": batched["ms"], "plain_ms": batched["plain_ms"],
         "eager_ms": batched["eager_ms"], "plain_eager_ms": batched["plain_eager_ms"],

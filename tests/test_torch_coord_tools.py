@@ -354,14 +354,15 @@ def test_coordinates_dict_and_matching_equal_jax(with_source, dims):
 NEW_COMMANDS = ["convert", "boxes_to_coordinates", "coordinates_to_boxes",
                 "coordinates_to_eman2_json", "coordinates_to_star", "star_to_coordinates",
                 "scale_coordinates", "star_particles_threshold", "split", "train_test_split",
-                "particle_stack", "segment", "gui"]
+                "particle_stack", "segment", "gui", "serve", "watch", "warmup"]
 
 
 @pytest.mark.parametrize("command", NEW_COMMANDS)
 def test_flags_and_defaults_are_the_jax_clis(command):
     """Every flag of the JAX command, with its default, choices, nargs and
     whether it is required; the port adds only ``-d`` to ``particle_stack``
-    and takes ``-d cpu`` in ``segment`` (default 0 in both)."""
+    and takes ``-d cpu`` in ``segment``, ``serve``, ``watch`` and ``warmup``
+    (default 0 in all)."""
     import argparse
     import importlib
 
@@ -377,7 +378,8 @@ def test_flags_and_defaults_are_the_jax_clis(command):
     assert got == want
     from topaz_tpu_torch.cli.main import NOT_PORTED, build_parser
 
-    assert NOT_PORTED == ("watch", "serve", "warmup")
+    assert NOT_PORTED == ()
     argv = {"gui": [], "coordinates_to_boxes": ["x", "--destdir", "d", "--boxsize", "8"],
-            "coordinates_to_eman2_json": ["x", "--destdir", "d"]}.get(command, ["x"])
+            "coordinates_to_eman2_json": ["x", "--destdir", "d"], "serve": [], "warmup": [],
+            "watch": ["x", "-o", "p.txt"]}.get(command, ["x"])
     assert build_parser().parse_args([command] + argv).command == command

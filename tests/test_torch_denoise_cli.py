@@ -84,7 +84,7 @@ def test_suffix_and_stack_outputs(tmp_path):
     ["denoise", "-d", "-2", "-o", "{d}", "{d}/mic.mrc"],
     ["denoise3d", "-d", "-2", "-o", "{d}", "{d}/mic.mrc"],
     ["segment", "-d", "-2", "-m", "resnet8_u32", "-o", "{d}", "{d}/mic.mrc"],
-    ["watch", "{d}"],
+    ["watch", "-d", "-2", "-o", "{d}/p.txt", "{d}"],
 ])
 def test_not_ported_paths_exit_with_an_error(tmp_path, argv):
     (tmp_path / "model.sav").write_bytes(b"\x80\x02")

@@ -1,8 +1,11 @@
 """The port's Fourier-crop downsampling against the JAX package.
 
 Same inputs (numpy, seeded) through ``topaz_tpu.ops.fourier.downsample`` and
-``topaz_tpu_torch.ops.fourier.downsample`` on the CPU. Tolerance atol 1e-4,
-rtol 1e-5: both are float32 FFTs whose sums run in different orders."""
+``topaz_tpu_torch.ops.fourier.downsample`` on the CPU, and the same for the
+3D ``downsample_3d`` and ``lowpass`` in 2D and 3D. Tolerance atol 1e-4,
+rtol 1e-5 for the 2D crops, 1e-5 of the output's largest magnitude for the
+3D functions and ``lowpass``: both are float32 FFTs whose sums run in
+different orders."""
 
 import numpy as np
 import pytest
@@ -59,3 +62,30 @@ def test_downsample_file_matches_jax(tmp_path):
     assert got.shape == (24, 20)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
     assert gheader == wheader
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("shape,factor,target", [
+    ((20, 30, 24), 2, None), ((33, 40, 27), 3, None), ((2, 16, 18, 20), None, (7, 9, 11))])
+def test_downsample_3d_matches_jax(shape, factor, target):
+    x = np.random.default_rng(11).normal(size=shape).astype(np.float32)
+    want = np.asarray(jfourier.downsample_3d(x, factor or 1, shape=target))
+    got = tfourier.downsample_3d(x, factor or 1, shape=target, device="cpu")
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    if target is None:
+        assert want.shape == tuple(int(s / factor) for s in shape)
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("shape,factor,dims", [
+    ((20, 30, 24), 2, 3), ((17, 22, 31), 3.5, 3), ((2, 18, 20, 22), 2, 3),
+    ((50, 64), 3, 2), ((2, 45, 38), 2, 2), ((20, 30, 24), 1, 3)])
+def test_lowpass_matches_jax(shape, factor, dims):
+    x = np.random.default_rng(12).normal(size=shape).astype(np.float32)
+    want = np.asarray(jfourier.lowpass(x, factor, dims))
+    got = tfourier.lowpass(x, factor, dims=dims, device="cpu")
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    _close(got.numpy(), want)

@@ -58,7 +58,11 @@ def test_import_loads_no_jax_nor_jax_package():
             "topaz_tpu_torch.segment", "topaz_tpu_torch.cli.commands.convert",
             "topaz_tpu_torch.cli.commands.particle_stack", "topaz_tpu_torch.cli.commands.gui",
             "topaz_tpu_torch.cli.commands.segment",
-            "topaz_tpu_torch.cli.commands.train_test_split"} <= scanned
+            "topaz_tpu_torch.cli.commands.train_test_split", "topaz_tpu_torch.serve",
+            "topaz_tpu_torch.watch", "topaz_tpu_torch.warmup", "topaz_tpu_torch.predict",
+            "topaz_tpu_torch.utils.signals", "topaz_tpu_torch.cli.commands.serve",
+            "topaz_tpu_torch.cli.commands.watch",
+            "topaz_tpu_torch.cli.commands.warmup"} <= scanned
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
@@ -109,7 +113,12 @@ def _entry_points(tmp_path):
     from topaz_tpu_torch.training import train_model
     from topaz_tpu_torch.denoise import Denoise, Denoise3D
     from topaz_tpu_torch.io.image import downsample_file
-    from topaz_tpu_torch.ops.nms import non_maximum_suppression_3d
+    from topaz_tpu_torch.ops.nms import exact_non_maximum_suppression, non_maximum_suppression_3d
+    from topaz_tpu_torch.ops.fourier import downsample_3d, lowpass
+    from topaz_tpu_torch.predict import score
+    from topaz_tpu_torch.serve import TopazService
+    from topaz_tpu_torch.warmup import warmup
+    from topaz_tpu_torch.watch import watch_directory
 
     x = np.random.default_rng(0).normal(size=(32, 32)).astype(np.float32)
     path = str(tmp_path / "a.mrc")
@@ -162,6 +171,14 @@ def _entry_points(tmp_path):
         "train_model_autoencoder": lambda: train_model(train_cli.add_arguments().parse_args(
             ["--train-images", str(tmp_path), "--train-targets", str(tmp_path / "t.txt"),
              "-n", "5", "--autoencoder", "1"])),
+        "exact_non_maximum_suppression": lambda: exact_non_maximum_suppression(x, 3),
+        "downsample_3d": lambda: downsample_3d(np.zeros((8, 8, 8), np.float32), 2),
+        "lowpass_3d": lambda: lowpass(np.zeros((8, 8, 8), np.float32), 2, dims=3),
+        "predict_score": lambda: score(new_picker("resnet8", units=4, device="cpu"), [x]),
+        "TopazService": lambda: TopazService(model="resnet8_u32"),
+        "watch_directory": lambda: watch_directory(str(tmp_path), str(tmp_path / "p.txt"),
+                                                   once=True),
+        "warmup": lambda: warmup(model="resnet8_u32", shapes=((32, 32),)),
     }
 
 
@@ -173,7 +190,8 @@ def _entry_points(tmp_path):
     "Denoise_from_arch", "extract_targets", "extract_only_validate",
     "extract_per_micrograph", "extract_per_micrograph_batched", "extract_patch_size",
     "extract_dims3", "non_maximum_suppression_3d", "downsample_file", "train_model_dims3",
-    "train_model_autoencoder"])
+    "train_model_autoencoder", "exact_non_maximum_suppression", "downsample_3d", "lowpass_3d",
+    "predict_score", "TopazService", "watch_directory", "warmup"])
 def test_entry_points_raise_without_cuda(tmp_path, monkeypatch, entry):
     from topaz_tpu_torch.device import DeviceUnavailableError
 

@@ -3,8 +3,9 @@
 The plain ``disk_max`` must be bit-equal to JAX's lax ``disk_max`` and to
 the Pallas kernel run in interpret mode (max is exact), and
 ``non_maximum_suppression`` must give identical scores and coordinates,
-ties included. The CUDA kernel is held bit-equal to the plain version on
-the card."""
+ties included. ``exact_non_maximum_suppression``, the literal greedy order,
+must give JAX's picks and the parallel rounds' own, and launch no kernel.
+The CUDA kernel is held bit-equal to the plain version on the card."""
 
 import jax
 import jax.numpy as jnp
@@ -74,6 +75,57 @@ def test_non_maximum_suppression_identical_to_jax(name):
     assert len(ts) > 0
     np.testing.assert_array_equal(ts, js)
     np.testing.assert_array_equal(tc, jc)
+
+
+@pytest.mark.parametrize("name", ["random", "random_threshold", "quantized_ties",
+                                  "coarse_ties", "constant", "smooth_peaks"])
+def test_exact_non_maximum_suppression_identical_to_jax(name):
+    x, r, thr = _maps()[name]
+    js, jc = jnms.exact_non_maximum_suppression(x, r, threshold=thr)
+    before = kernel.launches
+    ts, tc = tnms.exact_non_maximum_suppression(x, r, threshold=thr, device="cpu")
+    assert kernel.launches == before
+    assert ts.dtype == np.float32 and tc.dtype == np.int32 and len(ts) > 0
+    np.testing.assert_array_equal(ts, js)
+    np.testing.assert_array_equal(tc, jc)
+
+
+@pytest.mark.parametrize("seed,r,thr", [(7, 9, 0.5), (8, 5, -np.inf), (8, 6, 20.0), (9, 14, 0.0)])
+def test_parallel_rounds_equal_the_greedy_order_without_exact_ties(seed, r, thr):
+    """Where no two active scores are equal, the rounds' fixed point is the
+    greedy one. (Where a disk holds exact ties, the rounds break them by
+    index within the disk and the greedy by index over the whole map, so
+    the two can differ there: JAX's rounds do the same.)"""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(96, 80)).astype(np.float32)
+    if seed != 7:  # smooth fields: peaks of many sizes, as score maps have
+        x = np.cumsum(np.cumsum(x, 0), 1).astype(np.float32)
+    active = x[x > thr]
+    assert len(np.unique(active)) == active.size
+    es, ec = tnms.exact_non_maximum_suppression(x, r, threshold=thr, device="cpu")
+    rs, rc = tnms.non_maximum_suppression(x, r, threshold=thr, device="cpu")
+    assert len(es) > 0
+    np.testing.assert_array_equal(es, rs)
+    np.testing.assert_array_equal(ec, rc)
+
+
+@pytest.mark.parametrize("max_peaks", [1, 7])
+def test_exact_non_maximum_suppression_max_peaks_as_jax(max_peaks):
+    x, r, thr = _maps()["random"]
+    js, jc = jnms.exact_non_maximum_suppression(x, r, threshold=thr, max_peaks=max_peaks)
+    ts, tc = tnms.exact_non_maximum_suppression(torch.from_numpy(x), r, threshold=thr,
+                                                max_peaks=max_peaks, device="cpu")
+    assert len(ts) == max_peaks
+    np.testing.assert_array_equal(ts, js)
+    np.testing.assert_array_equal(tc, jc)
+
+
+def test_exact_non_maximum_suppression_with_nothing_above_threshold():
+    x = np.zeros((12, 9), np.float32)
+    js, jc = jnms.exact_non_maximum_suppression(x, 2, threshold=0.5)
+    ts, tc = tnms.exact_non_maximum_suppression(x, 2, threshold=0.5, device="cpu")
+    assert ts.shape == js.shape == (0,) and tc.shape == jc.shape == (0, 2)
+    assert tc.dtype == jc.dtype
 
 
 def test_batched_mask_matches_per_image():

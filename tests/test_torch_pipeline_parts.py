@@ -164,3 +164,73 @@ def test_profile_session_writes_a_trace(tmp_path, monkeypatch):
     traces = list((tmp_path / "trace").glob("*.json"))
     assert len(traces) == 1 and "unit/traced" in traces[0].read_text()
     profiling.reset()
+
+
+def _threads_settle(before, timeout=10.0):
+    """The live threads once those started since ``before`` have ended (or
+    ``timeout`` passed)."""
+    import threading
+    import time
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        extra = set(threading.enumerate()) - before
+        if not extra:
+            return extra
+        time.sleep(0.02)
+    return set(threading.enumerate()) - before
+
+
+@pytest.mark.parametrize("how", ["close", "drop"])
+def test_prefetch_producer_stops_when_the_consumer_stops_early(how):
+    """A consumer that stops after one item (closing the generator, or
+    dropping it) leaves no producer blocked on the full queue, and the
+    source generator is closed in the producer's thread."""
+    import threading
+
+    closed = []
+
+    def source():
+        try:
+            for i in range(50):
+                yield i
+        finally:
+            closed.append(threading.current_thread() is not threading.main_thread())
+
+    before = set(threading.enumerate())
+    it = tbatching.iterate_prefetched(source, maxsize=2)
+    assert next(it) == 0
+    if how == "close":
+        it.close()
+    else:
+        del it  # the last reference: the generator is finalized
+    assert _threads_settle(before, timeout=1.0) == set()
+    assert closed == [True]
+
+
+def test_pipeline_failing_on_the_device_leaves_no_loader_thread(tmp_path):
+    """A batch that fails on the device (as a sticky CUDA error does on
+    every call) ends ``process`` with the error, and its producer and
+    loader threads stop, with many batches still to load."""
+    import threading
+
+    from topaz_tpu_torch.io import mrc
+    from topaz_tpu_torch.pipeline import MicrographPipeline
+
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(8):
+        paths.append(str(tmp_path / f"m{i}.mrc"))
+        mrc.write(paths[-1], rng.normal(size=(64, 64)).astype(np.float32))
+    pipe = MicrographPipeline(model="resnet8_u32", scale=1, radius=3, threshold=0.0,
+                              num_workers=2, device="cpu")
+
+    def broken(padded, valid):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    pipe._fn_for = lambda bucket: broken
+    before = set(threading.enumerate())
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="illegal memory access"):
+            list(pipe.process(paths, batch_size=1))
+    assert _threads_settle(before) == set()

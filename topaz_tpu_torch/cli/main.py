@@ -3,9 +3,10 @@ topaz_tpu/cli/main.py).
 
 Same subcommand convention as the reference (topaz/main.py:53-148): each
 command module exposes ``name``, ``help``, ``add_arguments(parser)`` and
-``main(args)``. The commands of the JAX CLI that this port does not run yet
-are listed, and invoking one exits with an error that says so; so does a
-flag of a ported command whose path is not ported.
+``main(args)``. Every command of the JAX CLI runs. A command of the JAX CLI
+that the port did not run would be listed in ``NOT_PORTED``, and invoking
+it would exit with an error that says so; so does a flag of a ported
+command whose path is not ported (``-d -2``).
 """
 
 from __future__ import annotations
@@ -13,8 +14,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-# commands of the JAX CLI (topaz_tpu/cli/commands/) not yet ported
-NOT_PORTED = ("watch", "serve", "warmup")
+# commands of the JAX CLI (topaz_tpu/cli/commands/) not yet ported: none
+NOT_PORTED = ()
 
 
 def _not_ported(name: str):
@@ -31,8 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m topaz_tpu_torch",
         fromfile_prefix_chars="@",
-        description="PyTorch/CUDA port of topaz_tpu. Every command but "
-                    + ", ".join(NOT_PORTED) + " is ported.",
+        description="PyTorch/CUDA port of topaz_tpu. Every command of the JAX CLI "
+                    "runs; -d -2 (every device) is not yet ported.",
     )
     parser.add_argument("--version", action="version", version=topaz_tpu_torch.__version__)
     subparsers = parser.add_subparsers(title="commands", metavar="<command>")

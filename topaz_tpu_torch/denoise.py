@@ -77,9 +77,12 @@ class Denoise:
     float32 statistics and output. Methods take arrays or tensors and
     return float32 tensors on ``self.device``. The model comes from an
     alias or checkpoint path (``model``), a JAX parameter tree (``meta``,
-    ``params``) or a module (``net``)."""
+    ``params``) or a module (``net``). ``last_route`` names the route the
+    last ``denoise_batch`` took: "batched" (one forward) or "frames" (one
+    frame at a time, after the batch ran out of device memory)."""
 
     dims = 2
+    last_route = None
 
     def __init__(self, model: str = "unet", device="cuda", *, meta=None,
                  params=None, dtype=None, net=None):
@@ -199,13 +202,16 @@ class Denoise:
         _check_min_extent(self.meta, frames.shape[1:], "frames",
                           "the frame size or pick a shallower arch (unet-small)")
         try:
-            return self._normalized_forward(frames)
+            out = self._normalized_forward(frames)
+            self.last_route = "batched"
+            return out
         except torch.cuda.OutOfMemoryError:
             pass
         if frames.is_cuda:
             torch.cuda.empty_cache()
         print(f"# WARNING: batched denoising of {tuple(frames.shape)} exceeds "
               f"device memory; denoising frames one at a time", file=sys.stderr)
+        self.last_route = "frames"
         return torch.stack([self._apply(f) for f in frames])
 
     def train(self, train_sampler, val_sampler, **kw):

@@ -1,10 +1,13 @@
 """Fourier-crop downsampling and low-pass filtering (port of
-topaz_tpu/ops/fourier.py:19-68,100-122).
+topaz_tpu/ops/fourier.py).
 
 ``downsample`` reproduces topaz/utils/image.py:38-61 on ``torch.fft``: rfft2,
-keep the low-frequency corner blocks, rescale by the area ratio, irfft2.
+keep the low-frequency corner blocks, rescale by the area ratio, irfft2;
+``downsample_3d`` does the same over the last three axes of a volume.
 ``downsample_numpy`` is its host twin on scipy's pocketfft. ``lowpass``
-zeroes the coefficients above nyquist/factor (topaz/denoise.py:174-197).
+zeroes the coefficients above nyquist/factor (topaz/denoise.py:174-197) in
+2D or 3D. These were XLA ops on the TPU; here they are cuFFT through
+``torch.fft``.
 """
 
 from __future__ import annotations
@@ -39,19 +42,47 @@ def downsample(x, factor: float = 1, shape=None, device="cuda") -> torch.Tensor:
     return torch.fft.irfft2(F, s=(m, n))
 
 
-def lowpass(x, factor: float = 1, device="cuda") -> torch.Tensor:
-    """Low-pass filter the last two axes: zero every Fourier coefficient
-    whose frequency magnitude exceeds nyquist/factor along either axis.
-    ``x`` is an array or tensor; the FFTs run on ``device``."""
+def _crop_axis(F: torch.Tensor, size: int, dim: int) -> torch.Tensor:
+    """The lowest ``size // 2`` and the top ``size - size // 2`` frequencies
+    of axis ``dim``."""
+    n = F.shape[dim]
+    return torch.cat([F.narrow(dim, 0, size // 2),
+                      F.narrow(dim, n - (size - size // 2), size - size // 2)], dim=dim)
+
+
+def downsample_3d(x, factor: float = 1, shape=None, device="cuda") -> torch.Tensor:
+    """Fourier-crop the last three axes of a volume (or a batch of them)
+    to ``shape``, by default ``int(extent / factor)`` on each axis
+    (topaz_tpu/ops/fourier.py:72-97). The FFTs run on ``device``."""
+    x = as_device_tensor(x, device)
+    if shape is None:
+        shape = tuple(int(s / factor) for s in x.shape[-3:])
+    d, m, n = (int(s) for s in shape)
+    F = torch.fft.rfftn(x, dim=(-3, -2, -1))[..., 0:n // 2 + 1]
+    F = _crop_axis(_crop_axis(F, m, -2), d, -3)
+    F = F * ((d * m * n) / (x.shape[-3] * x.shape[-2] * x.shape[-1]))
+    return torch.fft.irfftn(F, s=(d, m, n), dim=(-3, -2, -1))
+
+
+def lowpass(x, factor: float = 1, dims: int = 2, device="cuda") -> torch.Tensor:
+    """Low-pass filter the last ``dims`` axes: zero every Fourier
+    coefficient whose frequency magnitude exceeds nyquist/factor along any
+    of them. ``x`` is an array or tensor; the FFTs run on ``device``."""
     x = as_device_tensor(x, device)
     if factor == 1:
         return x
-    H, W = x.shape[-2:]
-    F = torch.fft.rfft2(x)
+    shape = x.shape[-dims:]
+    axes = tuple(range(-dims, 0))
+    F = torch.fft.rfftn(x, dim=axes)
     cut = 0.5 / factor
-    keep = ((torch.fft.fftfreq(H, device=x.device).abs() <= cut)[:, None]
-            & (torch.fft.rfftfreq(W, device=x.device).abs() <= cut)[None, :])
-    return torch.fft.irfft2(torch.where(keep, F, 0), s=(H, W))
+    keep = torch.ones(F.shape[-dims:], dtype=torch.bool, device=x.device)
+    for d, size in enumerate(shape):
+        freq = (torch.fft.rfftfreq(size, device=x.device) if d == dims - 1
+                else torch.fft.fftfreq(size, device=x.device))
+        bshape = [1] * dims
+        bshape[d] = -1
+        keep = keep & (freq.abs() <= cut).reshape(bshape)
+    return torch.fft.irfftn(torch.where(keep, F, 0), s=shape, dim=axes)
 
 
 def downsample_numpy(x: np.ndarray, factor: float = 1, shape=None) -> np.ndarray:

@@ -14,12 +14,14 @@ plain version, used for tensors on the CPU and as the kernel's reference.
 The 3D ``sphere_max`` was XLA ops on the TPU, not a Pallas kernel, and is
 plain PyTorch on every device. The accepted peaks are gathered and sorted
 on the score map's device; only they come back to the host.
+``exact_non_maximum_suppression`` takes the peaks one at a time in the
+literal greedy order, the rounds' oracle.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -198,6 +200,44 @@ def non_maximum_suppression(
     mask = nms_mask_2d(x, int(r), float(threshold))
     scores, flat_idx = _sorted_peaks(x, mask)
     coords = np.stack([flat_idx % W, flat_idx // W], axis=1).astype(np.int32)
+    return scores, coords
+
+
+def exact_non_maximum_suppression(
+    x, r: int, threshold: float = -np.inf, max_peaks: Optional[int] = None, device="cuda"
+) -> Tuple[np.ndarray, np.ndarray]:
+    """NMS in the literal greedy order (topaz_tpu/ops/nms.py:268-326): take
+    the largest active score (the larger index on a tie), stop when it is
+    not above ``threshold``, suppress its disk, repeat, at most
+    ``max_peaks`` times (default: a packing bound that never truncates).
+    A plain loop of tensor ops on ``device`` with one host check a peak; it
+    launches no kernel, so it is the oracle for ``non_maximum_suppression``'s
+    parallel rounds. Returns (scores, coords[x, y]) in greedy order."""
+    x = _score_map(x, device)
+    H, W = x.shape
+    r = int(r)
+    if max_peaks is None:
+        max_peaks = int((H + r) * (W + r) / max(np.pi * (r / 2) ** 2, 1)) + 8
+        max_peaks = min(max_peaks, H * W)
+    flat = x.reshape(-1)
+    N = flat.numel()
+    lin = torch.arange(N, device=x.device)
+    yy, xx = lin // W, lin % W
+    neg = torch.tensor(NEG, dtype=flat.dtype, device=flat.device)
+    active = flat > threshold
+    picked = []
+    while len(picked) < max_peaks:
+        masked = torch.where(active, flat, neg)
+        i = N - 1 - torch.argmax(masked.flip(0))
+        if not bool(masked[i] > threshold):
+            break
+        picked.append(i)
+        active &= (yy - yy[i]) ** 2 + (xx - xx[i]) ** 2 > r * r
+    if not picked:
+        return np.zeros(0, np.float32), np.zeros((0, 2), np.int32)
+    idx = torch.stack(picked)
+    scores = flat[idx].cpu().numpy()
+    coords = torch.stack([xx[idx], yy[idx]], dim=1).to(torch.int32).cpu().numpy()
     return scores, coords
 
 

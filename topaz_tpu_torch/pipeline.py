@@ -289,41 +289,45 @@ class MicrographPipeline:
                     yield bucket, chunk, payload, valid
 
         device = self.device
-        for bucket, chunk, payload, valid in iterate_prefetched(
-                produce, maxsize=max(1, prefetch)):
-            fn = self._fn_for(bucket)
+        # closed when this generator is, or raises: the loader threads stop
+        batches = iterate_prefetched(produce, maxsize=max(1, prefetch))
+        try:
+            for bucket, chunk, payload, valid in batches:
+                fn = self._fn_for(bucket)
 
-            def dispatch_and_fetch():
-                with stage(f"pipeline/batch{bucket}"):
-                    if isinstance(payload, list):
-                        arr = torch.stack([
-                            self._prep_for(r.shape, bucket)(torch.from_numpy(r).to(device))
-                            for r in payload])
-                    else:
-                        arr = torch.from_numpy(payload).to(device)
-                    out = fn(arr, torch.from_numpy(valid).to(device))
-                    # the stage's time includes the device's when timings
-                    # or a profile are asked for
-                    sync_for_timing(out)
-                # the copy-out is inside the retried call: a dropped
-                # transport can surface there
-                return fetch_async(*out[:4], out[4] if len(out) > 4 else None)
+                def dispatch_and_fetch():
+                    with stage(f"pipeline/batch{bucket}"):
+                        if isinstance(payload, list):
+                            arr = torch.stack([
+                                self._prep_for(r.shape, bucket)(torch.from_numpy(r).to(device))
+                                for r in payload])
+                        else:
+                            arr = torch.from_numpy(payload).to(device)
+                        out = fn(arr, torch.from_numpy(valid).to(device))
+                        # the stage's time includes the device's when timings
+                        # or a profile are asked for
+                        sync_for_timing(out)
+                    # the copy-out is inside the retried call: a dropped
+                    # transport can surface there
+                    return fetch_async(*out[:4], out[4] if len(out) > 4 else None)
 
-            scores, coords, counts, degen, dens = retry_transient(
-                dispatch_and_fetch, retries=self.retries,
-                what=f"pipeline batch {bucket}")
-            for i, (path, _raw_shape) in enumerate(chunk):
-                if degen[i]:
-                    warnings.warn(
-                        f"{path}: constant image (std=0) — no picks emitted and "
-                        f"denoising passes it through unchanged (the reference "
-                        f"NaNs such frames)")
-                n = int(counts[i])
-                result = (path, scores[i, :n], coords[i, :n])
-                if dens is not None:
-                    vh, vw = valid[i]
-                    result = result + (dens[i, :vh, :vw],)
-                yield result
+                scores, coords, counts, degen, dens = retry_transient(
+                    dispatch_and_fetch, retries=self.retries,
+                    what=f"pipeline batch {bucket}")
+                for i, (path, _raw_shape) in enumerate(chunk):
+                    if degen[i]:
+                        warnings.warn(
+                            f"{path}: constant image (std=0) — no picks emitted and "
+                            f"denoising passes it through unchanged (the reference "
+                            f"NaNs such frames)")
+                    n = int(counts[i])
+                    result = (path, scores[i, :n], coords[i, :n])
+                    if dens is not None:
+                        vh, vw = valid[i]
+                        result = result + (dens[i, :vh, :vw],)
+                    yield result
+        finally:
+            batches.close()
 
 
 def _image_shape(path: str) -> Tuple[int, int]:

@@ -79,28 +79,55 @@ def iterate_prefetched(gen, maxsize: int = 2) -> Iterator:
     sentinel cannot collide with a real item. ``maxsize`` bounds host-RAM
     buffering (clamped to at least one slot). ``gen`` may be an iterable or
     a zero-argument callable returning one (the callable form runs any
-    pre-iteration work in the producer thread)."""
+    pre-iteration work in the producer thread).
+
+    A consumer that stops early (closes or drops this generator) stops the
+    producer too: its next put gives up, ``gen`` is closed in its thread
+    (so loader pools it holds shut down), and the consumer joins it, so no
+    thread is left blocked on a full queue holding loaded batches."""
     import queue
     import threading
 
     q: "queue.Queue" = queue.Queue(maxsize=max(1, maxsize))
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
 
     def run():
+        it = None
         try:
-            for item in (gen() if callable(gen) else gen):
-                q.put(item)
-            q.put(_SENTINEL)
+            it = gen() if callable(gen) else gen
+            for item in it:
+                if not put(item):
+                    return
+            put(_SENTINEL)
         except BaseException as e:  # noqa: BLE001 - propagated to the consumer
-            q.put(_ProducerError(e))
+            put(_ProducerError(e))
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
 
-    threading.Thread(target=run, daemon=True).start()
-    while True:
-        item = q.get()
-        if item is _SENTINEL:
-            return
-        if isinstance(item, _ProducerError):
-            raise item.exc
-        yield item
+    producer = threading.Thread(target=run, daemon=True)
+    producer.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _SENTINEL:
+                return
+            if isinstance(item, _ProducerError):
+                raise item.exc
+            yield item
+    finally:
+        stop.set()
+        producer.join(timeout=60)
 
 
 def window_batches(
