@@ -8,14 +8,20 @@ Phases, in order; any failure exits non-zero before a result is printed:
 1. Require a CUDA device; print the card's name and power limit.
 2. Build every CUDA kernel of the port from csrc/ (nvcc, sm_90a).
 3. Hold each kernel bit-equal against its plain PyTorch version on the card
-   (disk_max: f32 and int32; (512, 512), (3, 300, 200), (1, 4096, 4096);
-   r = 0, 3, 7, 14, 60, 96, 97, 100, either side of the largest radius
-   whose window fits in shared memory; and the pipeline's batched shapes
-   (8, 512, 512) and (8, 768, 512) at r = 3 and 14), and time kernel and
+   (disk_max: random f32 and int32 maps and the maps the NMS rounds feed
+   it, a score map ~90% -inf, an index map with INT32_MIN off the
+   candidates and a 0/1 peak map; (512, 512) and (3, 300, 200) at r = 0, 1,
+   3, 7, 14, 31, 32, 33, 60, 85, 86 (the last radius of the window kernel
+   at these widths and the first of the row kernel), 96, 97, 100, 150, and
+   (1, 4096, 4096) at r = 0, 3, 14, 33, 85, 86, 100, 150; the
+   pipeline's batched shapes (8, 512, 512) and (8, 768, 512) at r = 3 and
+   14; r >= H or W at (3, 40, 50) r = 60, (70, 33) r = 100, (40, 50) r =
+   120; the odd (5, 257, 129) at r = 1, 14, 33, 150), and time kernel and
    plain version at the main paths' shapes, (512, 512) and (8, 768, 512)
-   at r = 14, with CUDA events (device time from a CUDA graph of many
-   calls, and the eager time a call), beside the least time the card could
-   take.
+   at r = 14, and at (512, 512) over r = 5, 14, 30, 50, 75, 96, 100 (the
+   ``by_radius`` sweep), with CUDA events (device time from a CUDA graph
+   of many calls, and the eager time a call), beside the least time the
+   card could take.
 4. Drive the main path through the CLI a user calls: a 4096^2 synthetic
    micrograph through ``preprocess -s 8`` and
    ``extract -m resnet8_u32 -r 14 -t -6`` on the card (launch counts read
@@ -73,7 +79,7 @@ Phases, in order; any failure exits non-zero before a result is printed:
 8. The radius search (``run_extract_targets``), on the training phase's 16
    normalized micrographs with every planted particle a target:
    ``extract -m resnet8_u32 -t -6 --targets`` with the CLI's grid (r = 5
-   to 100 in steps of 5; r = 97 and up take the kernel's global route).
+   to 100 in steps of 5).
    One line a radius (AUPRC, RMSE, recall, wall and matching ms, greedy
    rounds, disk_max launches); it fails unless every radius ran and
    launched the kernel three times a round on maps that stayed on the card
@@ -254,6 +260,9 @@ STACK_TOL = 1e-4
 SERVICE_GEOMETRIES, SERVICE_FILES, SERVICE_ARRIVALS = [(4096, 4096), (5760, 4092)], 6, 4
 SERVICE_ROUNDS, SERVICE_CONCURRENCY = 3, 8
 SERVICE_DENOISE_BATCHES = (4, 8)
+# the radius sweep of the kernel check, at extract's (512, 512) map: the
+# radius grid's span (5..100) and the main path's r = 14
+DISK_MAX_SWEEP = (5, 14, 30, 50, 75, 96, 100)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 
@@ -346,46 +355,75 @@ def time_disk_max(shape, g, r=RADIUS, calls=200):
         "plain_eager_ms": cuda_ms(lambda: plain(x, r, NEG), 20),
     }
     times["bound_ms"], times["bound_by"] = disk_max_bound(x.shape, r, 4)
+    times["share"] = times["bound_ms"] / times["ms"]
     print(f"# disk_max f32 {shape} r={r}: device time a call (CUDA graph) "
           f"kernel {times['ms']:.5f} ms, plain {times['plain_ms']:.5f} ms; eager a call "
           f"kernel {times['eager_ms']:.5f} ms, plain {times['plain_eager_ms']:.5f} ms; "
-          f"bound {times['bound_ms']:.5f} ms ({times['bound_by']})")
+          f"bound {times['bound_ms']:.5f} ms ({times['bound_by']}), {times['share']:.4f} of it")
     return times
 
 
+def disk_max_inputs(shape, g, device="cuda"):
+    """The maps the NMS rounds hand the kernel, beside random ones: (label,
+    tensor, init) for a random f32 map, a random int32 map, a score map
+    masked to ~90% -inf, an index map (the in-plane linear index on ~5% of
+    the pixels, INT32_MIN elsewhere) and a 0/1 int32 peak map."""
+    import torch
+
+    from topaz_tpu_torch.ops.nms import INT_NEG, NEG
+
+    H, W = shape[-2:]
+    u = torch.rand(shape, device=device, generator=g)
+    lin = torch.arange(H * W, dtype=torch.int32, device=device).reshape(H, W).expand(shape)
+    scores = torch.randn(shape, device=device, generator=g)
+    return [
+        ("f32", scores, NEG),
+        ("i32", torch.randint(-999, 999, shape, device=device, generator=g,
+                              dtype=torch.int32), INT_NEG),
+        ("masked", torch.where(u < 0.9, NEG, scores), NEG),
+        ("index", torch.where(u < 0.05, lin, INT_NEG).contiguous(), INT_NEG),
+        ("peaks", (u < 0.01).to(torch.int32), INT_NEG),
+    ]
+
+
 def check_disk_max():
-    """Kernel against plain version, bit-equal; returns the max abs error
-    and the times at the single-image and the batched main-path shapes."""
+    """Kernel against plain version, bit-equal, on every kind of
+    ``disk_max_inputs``; returns the max abs error, the times at the
+    single-image and the batched main-path shapes, and the radius sweep at
+    the single-image shape."""
     import torch
 
     from topaz_tpu_torch.ops import disk_max as dm
-    from topaz_tpu_torch.ops.nms import INT_NEG, NEG, disk_max as plain
+    from topaz_tpu_torch.ops.nms import disk_max as plain
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     err = 0.0
-    cases = [(shape, r) for shape in [(512, 512), (3, 300, 200), (1, 4096, 4096)]
-             for r in (0, 3, 7, 14, 60, 96, 97, 100)]
+    cases = [(shape, r) for shape in [(512, 512), (3, 300, 200)]
+             for r in (0, 1, 3, 7, 14, 31, 32, 33, 60, 85, 86, 96, 97, 100, 150)]
+    cases += [((1, 4096, 4096), r) for r in (0, 3, 14, 33, 85, 86, 100, 150)]
     cases += [(shape, r) for shape in BATCHED_SHAPES for r in (3, 14)]
+    # r >= H or r >= W, and sides that are no multiple of a tile
+    cases += [((3, 40, 50), 60), ((70, 33), 100), ((40, 50), 120)]
+    cases += [((5, 257, 129), r) for r in (1, 14, 33, 150)]
     for shape, r in cases:
-        for dtype, init in ((torch.float32, NEG), (torch.int32, INT_NEG)):
-            if dtype == torch.float32:
-                x = torch.randn(shape, device="cuda", generator=g)
-            else:
-                x = torch.randint(-999, 999, shape, device="cuda",
-                                  generator=g, dtype=torch.int32)
+        for label, x, init in disk_max_inputs(shape, g):
             got = dm.disk_max(x, r, init)
             torch.cuda.synchronize()
             want = plain(x, r, init)
             torch.cuda.synchronize()
-            diff = (got.double() - want.double()).abs().max().item()
+            finite = torch.isfinite(want.double())
+            diff = (got.double() - want.double())[finite].abs().max().item() if finite.any() else 0.0
             err = max(err, diff)
             if not torch.equal(got, want):
-                fail(f"disk_max {dtype} {shape} r={r}: kernel differs from "
+                fail(f"disk_max {label} {shape} r={r}: kernel differs from "
                      f"plain version (max abs diff {diff})")
-            print(f"# disk_max {str(dtype):13s} {str(shape):17s} r={r:3d}: bit-equal")
+        print(f"# disk_max f32/i32/masked/index/peaks {str(shape):15s} r={r:3d}: bit-equal")
     single = time_disk_max((SIZE // 8, SIZE // 8), g)
     batched = time_disk_max(BATCHED_SHAPES[-1], g)
-    return err, single, batched
+    by_radius = [{"r": r, "shape": [SIZE // 8, SIZE // 8],
+                  **time_disk_max((SIZE // 8, SIZE // 8), g, r=r)}
+                 for r in DISK_MAX_SWEEP]
+    return err, single, batched, by_radius
 
 
 def read_picks(path):
@@ -1711,7 +1749,7 @@ def run_extract_targets(workdir: str, files):
             val_out):
         fail(f"extract_targets --only-validate: lines {val}, grid {at_found}")
 
-    # the grid's last radius, 100, on the kernel's global route, at the maps' shape
+    # the grid's last and costliest radius, 100, at the maps' shape
     r100 = time_disk_max((SIZE // 8, SIZE // 8), torch.Generator(device="cuda").manual_seed(SEED),
                          r=100, calls=20)
 
@@ -2898,7 +2936,7 @@ def main() -> None:
     build_libraries(["disk_max"])
     print(f"# kernels built in {time.perf_counter() - t:.2f} s")
 
-    err, single, batched = check_disk_max()
+    err, single, batched, by_radius = check_disk_max()
     launches = dict.fromkeys(PHASES + ("train_extract", "warmup", "serve", "watch"))
     r100 = None
     if want("slice") or want("denoise"):
@@ -2970,8 +3008,9 @@ def main() -> None:
 
     # the batched pipeline is the main path of the slices: its launches and
     # the time at its larger bucket's shape lead; extract's single-image
-    # shape keeps its numbers under "single", the radius grid's r = 100 (the
-    # kernel's global route) under "r100"
+    # shape keeps its numbers under "single", the radius grid's r = 100
+    # (timed in that phase) under "r100", and the sweep over r at that shape
+    # under "by_radius"
     kernels = [{
         "name": "disk_max", "route": "cuda",
         "source": "topaz_tpu_torch/csrc/disk_max.cu",
@@ -2992,7 +3031,7 @@ def main() -> None:
         "eager_ms": batched["eager_ms"], "plain_eager_ms": batched["plain_eager_ms"],
         "bound_ms": batched["bound_ms"], "bound_by": batched["bound_by"], "library_ms": None,
         "single": {"shape": [SIZE // 8, SIZE // 8], **single},
-        "r100": r100,
+        "r100": r100, "by_radius": by_radius,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

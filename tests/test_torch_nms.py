@@ -5,7 +5,9 @@ the Pallas kernel run in interpret mode (max is exact), and
 ``non_maximum_suppression`` must give identical scores and coordinates,
 ties included. ``exact_non_maximum_suppression``, the literal greedy order,
 must give JAX's picks and the parallel rounds' own, and launch no kernel.
-The CUDA kernel is held bit-equal to the plain version on the card."""
+The CUDA kernels are held bit-equal to the plain version on the card, on
+random maps and on the maps the NMS rounds feed them, at radii either side
+of the tile and route edges, beyond the map, and on sides no tile divides."""
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import disk_max_inputs
 from topaz_tpu.ops import nms as jnms
 from topaz_tpu.ops.nms_pallas import disk_max_pallas
 from topaz_tpu_torch.ops import disk_max as kernel
@@ -40,6 +43,20 @@ def test_plain_disk_max_bit_equal_to_jax_and_pallas(r, shape, dtype):
     pallas = np.asarray(disk_max_pallas(jnp.asarray(x), r, init, interpret=True))
     np.testing.assert_array_equal(port, lax_out)
     np.testing.assert_array_equal(port, pallas)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("shape,r", [((20, 24), 30), ((2, 20, 24), 25), ((40, 24), 30)])
+def test_plain_disk_max_at_large_radii_bit_equal_to_pallas(r, shape, dtype):
+    """r >= W, and r >= H: the plain version against the Pallas kernel in
+    interpret mode. The lax disk_max raises a TypeError when r >= H (its row
+    shifts outgrow the map), so it is compared only where r < H."""
+    x, init = _input(shape, dtype, seed=r)
+    port = tnms.disk_max(torch.from_numpy(x), r, init).numpy()
+    pallas = np.asarray(disk_max_pallas(jnp.asarray(x), r, init, interpret=True))
+    np.testing.assert_array_equal(port, pallas)
+    if r < shape[-2]:
+        np.testing.assert_array_equal(port, np.asarray(jax_disk_max(jnp.asarray(x), r, init)))
 
 
 @pytest.mark.parametrize("r", [0, 1, 5, 20])
@@ -146,17 +163,20 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("kind", ["f32", "i32", "masked", "index", "peaks"])
 @pytest.mark.parametrize("shape,r", [((512, 512), 14), ((3, 300, 200), 7),
                                      ((33, 70), 0), ((64, 80), 96),
-                                     ((70, 33), 100), ((40, 50), 120)])
-def test_cuda_kernel_bit_equal_to_plain(cuda_device, dtype, shape, r):
+                                     ((70, 33), 100), ((40, 50), 120),
+                                     ((8, 768, 512), 14), ((300, 200), 1),
+                                     ((300, 200), 31), ((300, 200), 32),
+                                     ((300, 200), 33), ((300, 200), 85),
+                                     ((300, 200), 86), ((300, 200), 150),
+                                     ((3, 40, 50), 60), ((5, 257, 129), 1),
+                                     ((5, 257, 129), 14), ((5, 257, 129), 33),
+                                     ((5, 257, 129), 150)])
+def test_cuda_kernel_bit_equal_to_plain(cuda_device, kind, shape, r):
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    if dtype == torch.float32:
-        x, init = torch.randn(shape, device=cuda_device, generator=g), tnms.NEG
-    else:
-        x = torch.randint(-999, 999, shape, device=cuda_device, generator=g, dtype=dtype)
-        init = tnms.INT_NEG
+    x, init = {label: (t, i) for label, t, i in disk_max_inputs(shape, g, cuda_device)}[kind]
     before = kernel.launches
     out = kernel.disk_max(x, r, init)
     torch.cuda.synchronize()

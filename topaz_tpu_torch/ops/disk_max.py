@@ -1,11 +1,20 @@
-"""The disk max-filter on the card: wrapper of the CUDA kernel
+"""The disk max-filter on the card: wrapper of the CUDA kernels
 ``csrc/disk_max.cu``.
 
 Replaces the TPU kernel ``_disk_max_kernel`` / ``disk_max_pallas``
-(topaz_tpu/ops/nms_pallas.py:35-119). Its bound is memory: one read and one
-write of the image, 8 bytes a pixel, about 2 MB and 0.6 us at 3.35 TB/s on
-the main path's 512 x 512 map. The kernel's design and measured time are in
-csrc/disk_max.cu and PERF.md.
+(topaz_tpu/ops/nms_pallas.py:35-119). On paper the function is bound by its
+bytes at r = 14 (8 a pixel: 2 MB and 0.6 us at 3.35 TB/s on the main path's
+512 x 512 map) and by its ~4r chord maxima a pixel at r = 100; the kernels
+are held by the instructions of their build steps. Each costs O(r + r^2 / T)
+a pixel, T the tile's 16 or 32 rows: a lane owns a column and builds the
+chord maxima of each row incrementally in registers, the tile's own rows up
+to width r and its halo rows only as wide as their chords. Where its block
+fits in shared memory (on an H100, r <= 85 at widths of 128 or more) the
+window kernel keeps the block's whole window there and the tile's outputs in
+registers; elsewhere the row kernel streams row segments through a two-row
+ring and folds into accumulators in shared memory. The launcher picks the
+kernel and its warps; the design is in csrc/disk_max.cu, the measured times
+in PERF.md.
 
 A tensor on the CPU goes to the plain version (ops/nms.disk_max); a CUDA
 tensor always goes to the kernel, which builds at first use.
@@ -76,6 +85,9 @@ def disk_max(x: torch.Tensor, r: int, init) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    # a disk of radius H + W - 2 already covers the whole image from every
+    # pixel, so a larger one gives the same maxima
+    r = min(r, H + W - 2)
     name, ctype, cast = _ENTRY[x.dtype]
     fn = getattr(_library(), name)
     with torch.cuda.device(x.device):
