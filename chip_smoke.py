@@ -172,7 +172,42 @@ Phases, in order; any failure exits non-zero before a result is printed:
    against ``non_maximum_suppression`` (the kernel's rounds) on the
    pipeline's 12 score maps: identical. Each of the three paths must launch
    the disk max.
-15. Print the kernels line, the card line, and last the result line.
+15. ``-d -2`` and the sharded functions (``run_scaleout``, phase
+   ``scaleout``): on one card ``-d -2`` is [cuda:0]. ``train -d -2``
+   against ``-d 0`` for one epoch of 5 steps on the training phase's set
+   (rows within ``TRAIN_TOL``, bit-equality printed); ``preprocess -s 8 -d
+   -2`` (the batched normalization, as in the JAX CLI) within 1e-3 of
+   ``--batch-size 2``, and ``extract -m resnet8_u32 -r 14 -t -6`` at ``-d
+   0`` and ``-d -2`` on the slice's 4096^2 micrograph preprocessed at -d 0
+   (identical picks, equal disk_max launches, those of -2 counted as
+   ``scaleout``); ``denoise -m unet -s 0``
+   at both (bit-identical). Over [cuda:0] x 2 and x 4: the halo dense
+   scorer against whole-image scoring on the 512^2 normalized micrograph
+   (within 1e-4, NMS picks through the kernel identical), the batched
+   scorer on 8 x 512^2 (1e-5), the halo denoiser with ``affine`` (1e-5 x
+   std) and ``unet`` at 4096^2 (root mean square within ``UNET_HALO_TOL``
+   x std), with the ms of
+   the halo routes beside the whole-image ones (the overhead of sharding
+   on one device, not a speed-up). The entry points over the card
+   repeated: ``MicrographPipeline`` over a 2 x 2 (data x space) mesh on
+   4 of the pipeline's 4096^2 micrographs (halo scoring in the batch, each
+   data row's NMS through the kernel, its launches counted as
+   ``scaleout_mesh_pipeline``) against one device (picks within
+   ``PIPELINE_TOL``, denoised within 1e-3 x std), ``Denoise("unet",
+   devices=[cuda:0] x 2)`` (the halo route, equal to the halo denoiser and
+   within ``UNET_HALO_TOL`` of whole-image), ``make_denoise_step`` over a
+   data mesh of 2 (SGD updates within ``DENOISE_TRAIN_TOL``),
+   ``segment.score_maps`` over 2 devices (1e-4) and
+   ``normalize_images_batched`` over a data mesh of 2 (1e-3), each
+   against its one-device route. One data-parallel SGD step over two
+   copies against one step on the whole batch, for ``resnet8_u32`` and
+   for a fresh ``resnet8`` with batch norm (updates within ``TRAIN_TOL``,
+   running statistics too). The library's tail, card against CPU:
+   ``ScaledGaussianMixture.fit`` on 4 x 512^2 (scales within 1e-5
+   relative), the ``EXTRA_ARCHS`` nets at the test widths on 256^2 (1e-3),
+   ``estimate_unblur_filter_gaussian`` on 512^2 (sigma and alpha within
+   1e-3 relative).
+16. Print the kernels line, the card line, and last the result line.
 
 ``--only PHASE ...`` runs the kernel check and those phases alone and
 prints no result line (for trying a phase on the card).
@@ -263,6 +298,16 @@ SERVICE_DENOISE_BATCHES = (4, 8)
 # the radius sweep of the kernel check, at extract's (512, 512) map: the
 # radius grid's span (5..100) and the main path's r = 14
 DISK_MAX_SWEEP = (5, 14, 30, 50, 75, 96, 100)
+# the scaleout phase: the bundled unet through the halo denoiser (2 and 4
+# row shards, a 256-row halo) against the whole-image route, the root mean
+# square of the difference over the input's std. On a 1024^2 synthetic
+# micrograph the JAX package's own halo route differs from its whole-image
+# route by 0.012543 (tests/test_torch_parallel.py::
+# test_unet_halo_bound_covers_jax, on the CPU), all of it near the image's
+# top and bottom edges, where the zero apron is not the per-layer zero
+# padding: so it falls as the image grows (0.008105 at 2048^2), and the
+# 1024^2 value, rounded up, bounds 4096^2
+UNET_HALO_TOL = 0.0126
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 
@@ -2895,10 +2940,375 @@ def run_services(workdir: str, device: str = "0"):
     return launches
 
 
+def shard_devices(n: int):
+    """The one card repeated ``n`` times: the sharded paths' device lists."""
+    import torch
+
+    return [torch.device("cuda:0")] * n
+
+
+def run_scaleout(workdir: str):
+    """``-d -2`` and the sharded functions on the one card. ``preprocess
+    -s 8 -d -2`` (the batched normalization, as in the JAX CLI) within
+    1e-3 of ``--batch-size 2``, and ``extract -m resnet8_u32 -r 14 -t -6`` at ``-d
+    0`` and ``-d -2`` on one file (identical picks and disk_max launches;
+    -2 is [cuda:0] here);
+    ``denoise -m unet -s 0`` at both (bit-identical). Over [cuda:0] * 2 and
+    * 4: the halo dense scorer against whole-image scoring (maps within
+    1e-4, NMS picks through the kernel identical), the batched scorer on 8
+    x 512^2 (1e-5), the halo denoiser with ``affine`` (1e-5 x std) and with
+    ``unet`` at 4096^2 (root mean square within ``UNET_HALO_TOL`` x std),
+    with the ms of each
+    against the whole-image route. Then the library's tail, card against
+    CPU: ``ScaledGaussianMixture.fit`` (scales within 1e-5 relative), each
+    ``EXTRA_ARCHS`` net at the test widths on 256^2 (1e-3) and
+    ``estimate_unblur_filter_gaussian`` on 512^2 (sigma and alpha within
+    1e-3 relative). Returns the disk_max launches of ``extract -d -2``."""
+    import numpy as np
+    import torch
+
+    from topaz_tpu_torch.cli.main import main as cli
+    from topaz_tpu_torch.denoise import Denoise
+    from topaz_tpu_torch.io import mrc
+    from topaz_tpu_torch.models.denoise_factory import load_denoiser
+    from topaz_tpu_torch.models.factory import load_picker
+    from topaz_tpu_torch.ops import disk_max as dm
+    from topaz_tpu_torch.ops.nms import non_maximum_suppression
+    from topaz_tpu_torch.parallel import mesh as pmesh
+    from topaz_tpu_torch.utils.synthetic import make_ctf_micrograph
+
+    t_phase = time.perf_counter()
+    x, _ = make_ctf_micrograph(np.random.default_rng(SEED), size=SIZE, n_particles=60)
+    raw = os.path.join(workdir, "raw.mrc")
+    mrc.write(raw, x)
+
+    # 1. picking and denoising through the CLI at -d 0 and -d -2. preprocess
+    # -d -2 takes the batched normalization at one image a batch (as the
+    # JAX CLI does), so it is held against --batch-size 2 at -d 0 within
+    # 1e-3, the normalized micrograph's tolerance in run_slice (a batch of 2
+    # sums the EM's moments in another order, and a lane may stop a step
+    # apart); both extracts read -d 0's file
+    procs = {}
+    for tag, flags in (("0", ["-d", "0"]), ("-2", ["-d", "-2"]),
+                       ("batch", ["-d", "0", "--batch-size", "2"])):
+        procs[tag] = os.path.join(workdir, f"proc{tag}")
+        cli(["preprocess", "-s", "8", "-o", procs[tag]] + flags + [raw])
+    norm, norm2, normb = (mrc.read(os.path.join(procs[t], "raw.mrc"))[0]
+                          for t in ("0", "-2", "batch"))
+    norm_err = float(np.abs(norm2.astype(np.float64) - normb).max())
+    if norm2.shape != normb.shape or norm_err > 1e-3:
+        fail(f"preprocess -d -2 differs from --batch-size 2 by {norm_err}")
+    runs = {}
+    for flag in ("0", "-2"):
+        picks = os.path.join(workdir, f"picks{flag}.txt")
+        dm.launches = 0
+        cli(["extract", "-m", "resnet8_u32", "-r", str(RADIUS), "-t", str(THRESHOLD),
+             "-o", picks, "-d", flag, os.path.join(procs["0"], "raw.mrc")])
+        torch.cuda.synchronize()
+        n = dm.launches
+        out = os.path.join(workdir, f"den{flag}")
+        cli(["denoise", "-m", "unet", "-s", "0", "-d", flag, "-o", out, raw])
+        runs[flag] = (read_picks(picks), n, mrc.read(os.path.join(out, "raw.mrc"))[0])
+    (p0, n0, d0), (p2, n2, d2) = runs["0"], runs["-2"]
+    print(f"# scaleout: preprocess -d -2 against --batch-size 2: max abs diff {norm_err}; "
+          f"extract -d -2 {len(p2)} "
+          f"picks, disk_max launches {n2} (-d 0: {len(p0)}, {n0}); denoise -d -2 "
+          f"bit-identical to -d 0: {np.array_equal(d2, d0)}")
+    if not p2 or p2 != p0 or n2 != n0 or n2 < 3:
+        fail(f"extract -d -2: {len(p2)} picks, {n2} launches against -d 0's {len(p0)}, "
+             f"{n0}; identical {p2 == p0}")
+    if not np.array_equal(d2, d0):
+        fail(f"denoise -d -2 differs from -d 0 by {np.abs(d2 - d0).max()}")
+
+    # 2. the sharded functions over the card repeated
+    picker = load_picker("resnet8_u32", device="cuda")
+    img = torch.from_numpy(np.array(norm, dtype=np.float32)).cuda()
+    with torch.inference_mode():
+        whole = picker(img[None])[0]
+    whole_ms = cuda_ms(lambda: picker(img[None]), 10)
+    want_picks = non_maximum_suppression(whole, RADIUS, threshold=THRESHOLD, device="cuda")
+    rng = np.random.default_rng(SEED + 700)
+    batch = torch.from_numpy(rng.normal(size=(8,) + tuple(norm.shape)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        batch_want = picker(batch)
+    affine = load_denoiser("affine", device="cuda")
+    den = Denoise("unet", device="cuda")
+    xt = torch.from_numpy(x).cuda()
+    mu, sd = xt.mean(), torch.std(xt, correction=0)
+    with torch.inference_mode():
+        affine_want = affine(((xt - mu) / sd)[None, None])[0, 0] * sd + mu
+        unet_want = den.denoise(xt, patch_size=0)
+    unet_ms = cuda_ms(lambda: den.denoise(xt, patch_size=0), 3, warmup=1)
+    x_std = float(x.std())
+    for n in (2, 4):
+        devs = shard_devices(n)
+        halo = pmesh.make_halo_dense_scorer(picker, pmesh.make_mesh(1, n, devs))
+        got = halo(img)
+        err = float((got - whole).abs().max())
+        got_picks = non_maximum_suppression(got, RADIUS, threshold=THRESHOLD, device="cuda")
+        same = (np.array_equal(got_picks[1], want_picks[1])
+                and np.allclose(got_picks[0], want_picks[0], rtol=0, atol=1e-4))
+        halo_ms = cuda_ms(lambda: halo(img), 10)
+        scorer = pmesh.make_batched_scorer(picker, pmesh.make_mesh(n, 1, devs))
+        berr = float((scorer(batch) - batch_want).abs().max())
+        ahalo = pmesh.make_halo_denoiser(affine, pmesh.make_mesh(1, n, devs), halo=256)
+        aerr = float((ahalo(xt) - affine_want).abs().max())
+        uhalo = pmesh.make_halo_denoiser(den.model, pmesh.make_mesh(1, n, devs), halo=256)
+        udiff = (uhalo(xt) - unet_want) / x_std
+        uerr, umax = float(udiff.square().mean().sqrt()), float(udiff.abs().max())
+        uhalo_ms = cuda_ms(lambda: uhalo(xt), 3, warmup=1)
+        print(f"# scaleout [cuda:0] x {n}: halo scorer {norm.shape} max abs diff {err} "
+              f"(picks identical {same}, {len(got_picks[0])}); batched scorer 8 x "
+              f"{norm.shape} {berr}; halo denoiser affine {aerr / x_std:.3e} x std, unet "
+              f"{SIZE}^2 root mean square {uerr:.4e} x std (bound {UNET_HALO_TOL}), largest "
+              f"{umax:.4e} x std")
+        print(f"# scaleout [cuda:0] x {n}: overhead of sharding on one device: halo scorer "
+              f"{halo_ms:.3f} ms against whole-image {whole_ms:.3f} ms; halo denoiser unet "
+              f"{uhalo_ms:.3f} ms against whole-image {unet_ms:.3f} ms")
+        if err > 1e-4 or not same or berr > 1e-5 or aerr > 1e-5 * x_std or uerr > UNET_HALO_TOL:
+            fail(f"sharded functions over {n}: halo scorer {err} (picks identical {same}), "
+                 f"batched scorer {berr}, affine {aerr}, unet root mean square {uerr} x std")
+    del den, affine_want, uhalo, ahalo
+    torch.cuda.empty_cache()
+    n_mesh = check_mesh_entry_points(workdir, xt, unet_want, x_std, os.path.join(procs["0"],
+                                                                                "raw.mrc"))
+    del unet_want
+    torch.cuda.empty_cache()
+    check_dp_step()
+    check_tail()
+    print(f"# scaleout phase (without train -d -2): {time.perf_counter() - t_phase:.1f} s")
+    return n2, n_mesh
+
+
+def check_mesh_entry_points(workdir: str, xt, unet_want, x_std: float, normalized: str):
+    """The entry points that take device lists, over the card repeated,
+    each against its one-device route: the pipeline over a 2 x 2 mesh, the
+    whole-image denoiser, the denoiser's train step, halo segmentation and
+    the batched normalization. Returns the disk_max launches of the mesh
+    pipeline's pass."""
+    import numpy as np
+    import torch
+
+    from topaz_tpu_torch.denoise import (Denoise, make_denoise_optimizer, make_denoise_step)
+    from topaz_tpu_torch.io import mrc
+    from topaz_tpu_torch.models.denoise_factory import load_denoiser
+    from topaz_tpu_torch.ops import disk_max as dm
+    from topaz_tpu_torch.parallel import mesh as pmesh
+    from topaz_tpu_torch.pipeline import MicrographPipeline
+    from topaz_tpu_torch.preprocess import normalize_images_batched
+    from topaz_tpu_torch.segment import score_maps
+
+    paths = write_micrographs(workdir, np.random.default_rng(SEED), [(SIZE, SIZE)], 4,
+                              prefix="so")
+    kw = dict(model="resnet8_u32", denoise_model="unet", scale=8, radius=RADIUS,
+              threshold=THRESHOLD, host_downsample=True, num_workers=2)
+    one = run_pipeline_pass(MicrographPipeline(**kw), paths, "scaleout, one device",
+                            batch_size=4)
+    pipe = MicrographPipeline(mesh=pmesh.make_mesh(2, 2, shard_devices(4)), **kw)
+    dm.launches = 0
+    meshed = run_pipeline_pass(pipe, paths, "scaleout, [cuda:0] x 4 as 2 x 2", batch_size=4)
+    torch.cuda.synchronize()
+    n_mesh = dm.launches
+    perr, derr = 0.0, 0.0
+    for path in paths:
+        perr = max(perr, compare_picks(picks_of(*meshed[path][:2]), picks_of(*one[path][:2]),
+                                       tie=PIPELINE_TOL, relative=True,
+                                       labels=("2 x 2 mesh", "one device")))
+        a, b = meshed[path][2], one[path][2]
+        derr = max(derr, float(np.abs(a.astype(np.float64) - b).max() / b.std()))
+    print(f"# scaleout: pipeline over a 2 x 2 mesh against one device, 4 x {SIZE}^2: "
+          f"matched scores max diff {perr} x max(1, |score|), denoised {derr:.3e} x std; "
+          f"disk_max launches {n_mesh}")
+    if n_mesh < 3 or n_mesh % 3 or perr > PIPELINE_TOL or derr > 1e-3:
+        fail(f"pipeline over a mesh: {n_mesh} disk_max launches, picks {perr}, "
+             f"denoised {derr} x std")
+
+    den = Denoise("unet", device="cuda", devices=shard_devices(2))
+    got = den.denoise(xt, patch_size=0)
+    halo = pmesh.make_halo_denoiser(den.model, pmesh.make_mesh(1, 2, shard_devices(2)),
+                                    halo=256)(xt)
+    rms = float(((got - unet_want) / x_std).square().mean().sqrt())
+    same = bool(torch.equal(got, halo))
+    print(f"# scaleout: Denoise('unet', devices=[cuda:0] x 2) {SIZE}^2: halo route "
+          f"{len(den._halo_fns) == 1}, equal to the halo denoiser {same}, root mean square "
+          f"{rms:.4e} x std from whole-image (bound {UNET_HALO_TOL})")
+    if len(den._halo_fns) != 1 or not same or rms > UNET_HALO_TOL:
+        fail(f"Denoise over 2 devices: halo route {len(den._halo_fns)}, equal {same}, "
+             f"root mean square {rms}")
+    del den, got, halo
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 750)
+    src, tgt = (torch.from_numpy(rng.normal(size=(4, 256, 256)).astype(np.float32)).cuda()
+                for _ in range(2))
+    updates = []
+    for mesh in (None, pmesh.make_mesh(2, 1, shard_devices(2))):
+        model = load_denoiser("unet", device="cuda")
+        before = [p.detach().clone() for p in model.parameters()]
+        step = make_denoise_step(model, make_denoise_optimizer(model, "sgd", lr=1.0), "L2",
+                                 mesh=mesh)
+        step(src, tgt, 0.0)
+        updates.append([p.detach() - b for p, b in zip(model.parameters(), before)])
+    scale = max(float(u.abs().max()) for u in updates[0])
+    uerr = max(float((a - b).abs().max()) for a, b in zip(*updates)) / scale
+    print(f"# scaleout: denoiser SGD step over a data mesh of 2 against one device, 4 x "
+          f"256^2: updates differ by {uerr:.3e} of the largest ({scale:.3e})")
+    if not scale > 0 or uerr > DENOISE_TRAIN_TOL:
+        fail(f"denoiser step over a mesh: updates differ by {uerr} of the largest")
+
+    maps = [next(score_maps("resnet8_u32", [normalized], devices=d))[1]
+            for d in (shard_devices(1), shard_devices(2))]
+    serr = float(np.abs(maps[1] - maps[0]).max())
+    print(f"# scaleout: segment score map over [cuda:0] x 2 against one device: max abs "
+          f"diff {serr}")
+    if maps[1].shape != maps[0].shape or serr > 1e-4:
+        fail(f"segment over 2 devices: score maps differ by {serr}")
+
+    outs = {}
+    for tag, mesh in (("one", None), ("mesh", pmesh.make_mesh(2, 1, shard_devices(2)))):
+        outs[tag] = os.path.join(workdir, f"norm_{tag}")
+        normalize_images_batched(paths, outs[tag], scale=8, batch_size=2, device="cuda",
+                                 mesh=mesh)
+    nerr = max(float(np.abs(mrc.read(os.path.join(outs["mesh"], os.path.basename(p)))[0]
+                            .astype(np.float64)
+                            - mrc.read(os.path.join(outs["one"], os.path.basename(p)))[0]).max())
+               for p in paths)
+    print(f"# scaleout: normalize_images_batched over a data mesh of 2 against one device, "
+          f"4 x {SIZE}^2 at -s 8: max abs diff {nerr}")
+    if nerr > 1e-3:
+        fail(f"batched normalization over a mesh differs by {nerr}")
+    return n_mesh
+
+
+def check_dp_step():
+    """One data-parallel step over two copies on the card against one step
+    on the concatenated batch, SGD so that the update is linear in the
+    gradient, for ``resnet8_u32`` and for a fresh ``resnet8`` with batch
+    norm (its statistics over both shards): the largest difference of the
+    updates, and of the running statistics, within ``TRAIN_TOL`` of the
+    largest update (of the largest statistic)."""
+    import numpy as np
+    import torch
+
+    from topaz_tpu_torch.models.factory import load_picker, new_picker
+    from topaz_tpu_torch.parallel import mesh as pmesh
+    from topaz_tpu_torch.train.methods import make_loss_fn
+    from topaz_tpu_torch.train.trainer import init_train_state, make_train_step
+
+    rng = np.random.default_rng(SEED + 800)
+    crops = torch.from_numpy(rng.normal(size=(64, 71, 71)).astype(np.float32)).cuda()
+    labels = torch.from_numpy((np.arange(64) % 4 == 0).astype(np.float32)).cuda()
+    loss_fn = make_loss_fn("GE-binomial", 0.05)[0]
+    builds = {"resnet8_u32": lambda: load_picker("resnet8_u32", device="cuda"),
+              "resnet8 --bn on": lambda: new_picker("resnet8", bn=True, seed=0, device="cuda")}
+    for name, build in builds.items():
+        after, stats = [], []
+        for mesh in (None, pmesh.make_mesh(2, 1, shard_devices(2))):
+            model = build()
+            before = [p.detach().clone() for p in model.parameters()]
+            state = init_train_state(model, 0.05, lr=1.0, optim="sgd")
+            make_train_step(loss_fn, mesh=mesh)(state, crops, labels)
+            after.append([p.detach() - b for p, b in zip(model.parameters(), before)])
+            stats.append([b.detach().clone() for b in model.buffers()])
+        scale = max(float(u.abs().max()) for u in after[0])
+        err = max(float((a - b).abs().max()) for a, b in zip(after[1], after[0])) / scale
+        serr = max([float((a - b).abs().max() / b.abs().max()) for a, b in zip(*stats)],
+                   default=0.0)
+        print(f"# scaleout: DP step of {name} over [cuda:0] x 2 against one step on the batch "
+              f"of 64: updates differ by {err:.3e} of the largest update ({scale:.3e}); "
+              f"{len(stats[0])} batch-norm buffers, {serr:.3e} relative")
+        if not scale > 0 or err > TRAIN_TOL or serr > TRAIN_TOL:
+            fail(f"DP train step of {name}: updates differ by {err} of the largest, "
+                 f"running statistics by {serr} (tolerance {TRAIN_TOL})")
+
+
+def check_tail():
+    """The library's tail on the card against the CPU: ScaledGaussianMixture
+    on 4 images of 512^2, the EXTRA_ARCHS nets at the test widths on 256^2,
+    the Gaussian unblur filter on 512^2."""
+    import numpy as np
+    import torch
+
+    from topaz_tpu_torch.models import extras
+    from topaz_tpu_torch.ops.filters import estimate_unblur_filter_gaussian
+    from topaz_tpu_torch.transform import ScaledGaussianMixture
+
+    rng = np.random.default_rng(SEED + 900)
+    images = []
+    for s in (0.8, 1.0, 1.2, 1.5):
+        comp = rng.random((512, 512)) < 0.3
+        images.append((np.where(comp, rng.normal(4.0, 0.3, (512, 512)),
+                                rng.normal(1.0, 0.3, (512, 512))) * s).astype(np.float32))
+    scales = {}
+    for dev in ("cuda", "cpu"):
+        sgm = ScaledGaussianMixture(ncomponents=2, device=dev)
+        t0 = time.perf_counter()
+        scale, _ = sgm.fit(images, random=np.random.RandomState(1))
+        scales[dev] = scale.cpu().numpy().astype(np.float64)
+        print(f"# scaleout: ScaledGaussianMixture.fit 4 x 512^2 on {dev}: "
+              f"{time.perf_counter() - t0:.3f} s, scales {scales[dev]}")
+    serr = float(np.max(np.abs(scales["cuda"] / scales["cpu"] - 1)))
+    if serr > 1e-5:
+        fail(f"ScaledGaussianMixture: card scales differ from the CPU's by {serr} relative")
+
+    nets = {"msdensenet": lambda: extras.MultiscaleDenseNet(base_units=8, ng=6, num_blocks=2),
+            "densenet": lambda: extras.DenseNet(init_units=8, ng=4, bn_size=2, fc_units=16,
+                                                num_layers=3),
+            "rmsnet": lambda: extras.RMSNet(units=[4, 4, 4, 6, 6, 6, 6, 6, 6, 8, 8, 8]),
+            "rmsnet7": lambda: extras.RMSNet7(units=[8, 8, 12, 12, 16]),
+            "rmsnet10": lambda: extras.RMSNet10(units=[8, 8, 12, 12, 16]),
+            "pyramidnet": lambda: extras.PyramidNet(base_units=8, scales=[2, 4, 8])}
+    xin = torch.from_numpy(rng.normal(size=(1, 1, 256, 256)).astype(np.float32))
+    worst = {}
+    for name, build in nets.items():
+        model = extras.init_extras_(build(), torch.Generator().manual_seed(0)).eval()
+        with torch.no_grad():
+            cpu = model(xin)
+            card = model.cuda()(xin.cuda()).cpu()
+        worst[name] = float((card - cpu).abs().max())
+    print(f"# scaleout: EXTRA_ARCHS on 256^2, card against CPU max abs diff {worst}")
+    if max(worst.values()) > 1e-3:
+        fail(f"EXTRA_ARCHS card against CPU: {worst}")
+
+    y = rng.normal(size=(512, 512)).astype(np.float32)
+    y = y + 0.5 * np.roll(y, 1, axis=0) + 0.5 * np.roll(y, 1, axis=1)
+    fits = {dev: estimate_unblur_filter_gaussian(y, device=dev)[1:3] for dev in ("cuda", "cpu")}
+    ferr = max(abs(a / b - 1) for a, b in zip(fits["cuda"], fits["cpu"]))
+    print(f"# scaleout: estimate_unblur_filter_gaussian 512^2 (sigma, alpha) card "
+          f"{fits['cuda']} cpu {fits['cpu']}, {ferr:.3e} relative")
+    if ferr > 1e-3:
+        fail(f"estimate_unblur_filter_gaussian: card against CPU {ferr} relative")
+
+
+def train_scaleout(workdir: str, files):
+    """``train -d -2`` against ``-d 0`` for one epoch of 5 steps on the
+    training phase's set: -2 is [cuda:0] on one card, so the rows are the
+    same computation; each column's difference in units of max(|value|,
+    TRAIN_TOL_FLOOR) within TRAIN_TOL, and whether they are bit-equal."""
+    from topaz_tpu_torch.cli.main import main as cli
+
+    train_images, train_targets = files["train"]
+    argv = ["train", "--train-images", train_images, "--train-targets", train_targets,
+            "-n", str(TRAIN_PARTICLES), "-r", "3", "--num-epochs", "1", "--epoch-size", "5"]
+    rows = {}
+    for flag in ("0", "-2"):
+        log = os.path.join(workdir, f"scaleout_train{flag}.tsv")
+        t0 = time.perf_counter()
+        cli(argv + ["-d", flag, "-o", log])
+        print(f"# scaleout: train -d {flag} took {time.perf_counter() - t0:.3f} s")
+        rows[flag] = check_log(log, 5, f"train -d {flag}")[1]
+    worst = max(abs(u - v) / max(abs(v), TRAIN_TOL_FLOOR)
+                for a, b in zip(rows["-2"], rows["0"]) for u, v in zip(a[3:-1], b[3:-1]))
+    print(f"# scaleout: train -d -2 rows against -d 0: bit-equal {rows['-2'] == rows['0']}, "
+          f"largest difference {worst:.3e}")
+    if worst > TRAIN_TOL:
+        fail(f"train -d -2 rows differ from -d 0's by {worst}")
+
+
 # the phases after the kernel check, in order; ``--only`` runs some of them
 PHASES = ("slice", "denoise", "pipeline", "training", "extract_targets", "train_ae",
           "denoise_train", "denoise3d", "extract3d", "train3d", "tools",
-          "services")
+          "services", "scaleout")
 
 
 def main() -> None:
@@ -2937,7 +3347,8 @@ def main() -> None:
     print(f"# kernels built in {time.perf_counter() - t:.2f} s")
 
     err, single, batched, by_radius = check_disk_max()
-    launches = dict.fromkeys(PHASES + ("train_extract", "warmup", "serve", "watch"))
+    launches = dict.fromkeys(PHASES + ("train_extract", "warmup", "serve", "watch",
+                                       "scaleout_mesh_pipeline"))
     r100 = None
     if want("slice") or want("denoise"):
         with tempfile.TemporaryDirectory() as workdir:
@@ -2950,9 +3361,11 @@ def main() -> None:
             launches["pipeline"], paths, dev = run_pipeline(workdir)
             hold_pipeline(paths, dev)
             run_batched_cli(workdir, paths)
-    if want("training") or want("extract_targets") or want("train_ae"):
+    if want("training") or want("extract_targets") or want("train_ae") or want("scaleout"):
         with tempfile.TemporaryDirectory() as workdir:
             files = write_training_set(workdir)
+            if want("scaleout"):
+                train_scaleout(workdir, files)
             if want("training"):
                 t = time.perf_counter()
                 launches["training"], launches["train_extract"], argv, prefix, epoch_s = (
@@ -3003,6 +3416,11 @@ def main() -> None:
             t = time.perf_counter()
             launches.update(run_services(workdir))
             print(f"# services phase: {time.perf_counter() - t:.1f} s")
+    if want("scaleout"):
+        with tempfile.TemporaryDirectory() as workdir:
+            t = time.perf_counter()
+            launches["scaleout"], launches["scaleout_mesh_pipeline"] = run_scaleout(workdir)
+            print(f"# scaleout phase: {time.perf_counter() - t:.1f} s")
     if "jax" in sys.modules or "topaz_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
 
@@ -3025,7 +3443,9 @@ def main() -> None:
                              "extract3d": launches["extract3d"],
                              "train3d": launches["train3d"], "train_ae": launches["train_ae"],
                              "sav_extract": launches["tools"], "warmup": launches["warmup"],
-                             "serve": launches["serve"], "watch": launches["watch"]},
+                             "serve": launches["serve"], "watch": launches["watch"],
+                             "scaleout": launches["scaleout"],
+                             "scaleout_mesh_pipeline": launches["scaleout_mesh_pipeline"]},
         "max_abs_err": err, "shape": list(BATCHED_SHAPES[-1]), "r": RADIUS,
         "ms": batched["ms"], "plain_ms": batched["plain_ms"],
         "eager_ms": batched["eager_ms"], "plain_eager_ms": batched["plain_eager_ms"],

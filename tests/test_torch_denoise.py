@@ -154,8 +154,6 @@ def test_load_denoiser_refuses_what_is_not_ported(tmp_path):
         tfactory.load_denoiser(str(tmp_path / "missing.npz"), device="cpu")
     with pytest.raises(FileNotFoundError, match="not bundled"):
         tfactory.load_denoiser("unet-3d", device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfilters.estimate_unblur_filter_gaussian(np.zeros((16, 16), np.float32))
 
 
 def test_npz_checkpoint_loads_by_path(tmp_path):
@@ -214,6 +212,23 @@ def test_spatial_covariance_matches_jax():
     w_got, _ = tfilters.estimate_unblur_filter(x, device="cpu")
     w_want, _ = jfilters.estimate_unblur_filter(x)
     _close(w_got, w_want)
+
+
+def test_estimate_unblur_filter_gaussian_matches_jax():
+    """The Gaussian whitening fit on correlated noise (the JAX package's own
+    input, tests/test_denoise.py:400-403): sigma and alpha within 1e-3
+    relative (the same BFGS from the same start on float32 losses summed in
+    other orders); the inverse filter and the covariance within 1e-4."""
+    x = np.random.default_rng(42).normal(size=(80, 90)).astype(np.float32)
+    x = x + 0.5 * np.roll(x, 1, axis=0) + 0.5 * np.roll(x, 1, axis=1)
+    w_want, sigma_want, alpha_want, cov_want = jfilters.estimate_unblur_filter_gaussian(x)
+    w_got, sigma_got, alpha_got, cov_got = tfilters.estimate_unblur_filter_gaussian(
+        x, device="cpu")
+    np.testing.assert_allclose(sigma_got, sigma_want, rtol=1e-3)
+    np.testing.assert_allclose(alpha_got, alpha_want, rtol=1e-3)
+    assert w_got.shape == (11, 11) and w_got.dtype == np.float32
+    np.testing.assert_allclose(w_got, w_want, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(cov_got, cov_want, rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("patch", [1, 2])

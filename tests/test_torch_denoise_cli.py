@@ -14,6 +14,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from topaz_tpu_torch.cli.main import main
 from topaz_tpu_torch.io import mrc
@@ -86,8 +87,22 @@ def test_suffix_and_stack_outputs(tmp_path):
     ["segment", "-d", "-2", "-m", "resnet8_u32", "-o", "{d}", "{d}/mic.mrc"],
     ["watch", "-d", "-2", "-o", "{d}/p.txt", "{d}"],
 ])
-def test_not_ported_paths_exit_with_an_error(tmp_path, argv):
+def test_not_ported_paths_exit_with_an_error(tmp_path, argv, monkeypatch):
+    """``-d -2`` with no GPU exits with the no-device error and writes
+    nothing: it never runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     (tmp_path / "model.sav").write_bytes(b"\x80\x02")
+    before = sorted(p.name for p in tmp_path.iterdir())
     with pytest.raises(SystemExit) as e:
         main([a.format(d=tmp_path) for a in argv])
-    assert "not yet ported" in str(e.value.code)
+    assert "no CUDA device is available" in str(e.value.code)
+    assert sorted(p.name for p in tmp_path.iterdir()) == before
+
+
+def test_denoise3d_device_flag_defaults_to_every_device():
+    """``denoise3d -d`` defaults to -2, as the JAX CLI's does."""
+    from topaz_tpu.cli.commands import denoise3d as jdenoise3d
+    from topaz_tpu_torch.cli.commands import denoise3d as tdenoise3d
+
+    want = jdenoise3d.add_arguments().parse_args(["t.mrc"]).device
+    assert tdenoise3d.add_arguments().parse_args(["t.mrc"]).device == want == -2

@@ -62,7 +62,10 @@ def test_import_loads_no_jax_nor_jax_package():
             "topaz_tpu_torch.watch", "topaz_tpu_torch.warmup", "topaz_tpu_torch.predict",
             "topaz_tpu_torch.utils.signals", "topaz_tpu_torch.cli.commands.serve",
             "topaz_tpu_torch.cli.commands.watch",
-            "topaz_tpu_torch.cli.commands.warmup"} <= scanned
+            "topaz_tpu_torch.cli.commands.warmup", "topaz_tpu_torch.transform",
+            "topaz_tpu_torch.transform.scaled_gaussian_mixture",
+            "topaz_tpu_torch.models.extras", "topaz_tpu_torch.parallel",
+            "topaz_tpu_torch.parallel.devices", "topaz_tpu_torch.parallel.mesh"} <= scanned
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():

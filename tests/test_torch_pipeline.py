@@ -171,9 +171,19 @@ def test_skip_errors(files, tmp_path):
     _assert_same_picks(got, solo)
 
 
-def test_no_mesh_and_no_fallback():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        MicrographPipeline(mesh=object(), device="cpu")
+def test_no_mesh_and_no_fallback(files):
+    """Over a 2 x 2 (data x space) mesh that repeats the CPU (each batch
+    split in two, each image scored in two row shards with halos) the
+    pipeline gives the one-device picks; with no GPU and no device named it
+    raises instead of running on the CPU."""
+    from topaz_tpu_torch.parallel.mesh import make_mesh
+
+    paths, _ = files
+    mesh = make_mesh(n_data=2, n_space=2, devices=["cpu"] * 4)
+    pipe, got, _ = _run(MicrographPipeline, paths, mesh=mesh)
+    assert pipe.device == torch.device("cpu")
+    _, solo, _ = _run(MicrographPipeline, paths, device="cpu")
+    _assert_same_picks(got, solo)
     if torch.cuda.is_available():
         return
     from topaz_tpu_torch.device import DeviceUnavailableError

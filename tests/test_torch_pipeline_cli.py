@@ -16,6 +16,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from topaz_tpu_torch.cli.main import main
 from topaz_tpu_torch.io import mrc
@@ -129,7 +130,12 @@ def test_batched_extract_matches_the_jax_cli(micrographs, tmp_path):
     ["extract", "-m", "resnet8_u32", "-r", "6", "-d", "-2", "--batch-size", "2",
      "--per-micrograph"],
 ])
-def test_not_ported_batched_paths_exit_with_an_error(micrographs, tmp_path, argv):
+def test_not_ported_batched_paths_exit_with_an_error(micrographs, tmp_path, argv,
+                                                    monkeypatch):
+    """``-d -2`` with no GPU exits with the no-device error and writes
+    nothing: it never runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
         main(argv + ["-o", str(tmp_path / "out")] + micrographs)
-    assert "not yet ported" in str(e.value.code)
+    assert "no CUDA device is available" in str(e.value.code)
+    assert not (tmp_path / "out").exists()

@@ -7,7 +7,7 @@ whole and with ``-p 6`` (tiles of 12), ``.npy`` maps. Maps agree with the
 JAX package's ``segment_images`` within atol 1e-4, rtol 1e-4 (float32
 convolutions in two libraries, ``tests/test_torch_picker.py``'s tolerance)
 and have the input's shape; a tiled map equals the port's whole map within
-the same tolerance. ``-d -2`` exits as not yet ported; the default
+the same tolerance. ``-d -2`` without a GPU exits with the no-device error; the default
 ``resnet16`` alias (u64 weights) is not in the repo in either package.
 """
 
@@ -15,6 +15,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from topaz_tpu.cli.main import build_parser as j_build_parser
 from topaz_tpu_torch.cli.main import main as tmain
@@ -79,12 +80,15 @@ def test_segment_3d_matches_jax(tmp_path):
     np.testing.assert_allclose(tiled["tomo.npy"], whole["tomo.npy"], **TOL)
 
 
-def test_segment_refuses_what_is_not_there(tmp_path):
+def test_segment_refuses_what_is_not_there(tmp_path, monkeypatch):
     path = str(tmp_path / "mic.mrc")
     mrc.write(path, np.zeros((16, 16), np.float32))
-    with pytest.raises(SystemExit) as e:
-        tmain(["segment", "-m", "resnet8_u32", "-o", str(tmp_path), "-d", "-2", path])
-    assert "not yet ported" in str(e.value.code)
+    with monkeypatch.context() as m:  # -d -2 with no GPU: the no-device error, no CPU run
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(SystemExit) as e:
+            tmain(["segment", "-m", "resnet8_u32", "-o", str(tmp_path), "-d", "-2", path])
+    assert "no CUDA device is available" in str(e.value.code)
+    assert not (tmp_path / "mic.tiff").exists()
     with pytest.raises(FileNotFoundError, match="not bundled"):
         tmain(["segment", "-o", str(tmp_path), "-d", "cpu", path])
     with pytest.raises(ValueError, match="patch size must be positive"):

@@ -542,7 +542,7 @@ def test_serve_cli_registration():
 @pytest.mark.parametrize("argv,message", [
     (["serve", "--port", "0"], "no CUDA device"),
     (["serve", "--port", "0", "-d", "-1"], "no CUDA device"),
-    (["serve", "--port", "0", "-d", "-2"], "not yet ported"),
+    (["serve", "--port", "0", "-d", "-2"], "no CUDA device"),
 ])
 def test_serve_cli_refuses_without_cuda_or_with_every_device(monkeypatch, argv, message):
     from topaz_tpu_torch.cli.main import main

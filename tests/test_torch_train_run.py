@@ -155,12 +155,17 @@ def test_train_cli_runs_in_a_subprocess(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-d", "-2"], "P14"),
+    (["-d", "-2"], "no CUDA device is available"),
 ])
-def test_unported_paths_exit_naming_their_item(tmp_path, flags, item):
+def test_unported_paths_exit_naming_their_item(tmp_path, flags, item, monkeypatch):
+    """``train -d -2`` with no GPU exits with the no-device error and
+    trains nothing on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     (tmp_path / "model.sav").write_bytes(b"")
     argv = _dataset(tmp_path, n_images=1) + ["-n", "5", "--num-epochs", "1", "--epoch-size", "1",
-                                             "--no-pretrained", "--units", "4"]
+                                             "--no-pretrained", "--units", "4",
+                                             "--save-prefix", str(tmp_path / "m")]
     with pytest.raises(SystemExit) as e:
         tmain(["train"] + argv + [f.format(d=tmp_path) for f in flags])
-    assert "not yet ported" in str(e.value.code) and item in str(e.value.code)
+    assert item in str(e.value.code) and "-d -2" in str(e.value.code)
+    assert not list(tmp_path.glob("m_epoch*"))

@@ -57,7 +57,7 @@ def test_warmup_cli_on_the_cpu(capsys):
 @pytest.mark.parametrize("argv,message", [
     (["warmup", "--shapes", "64x64"], "no CUDA device"),
     (["warmup", "--shapes", "64x64", "-d", "-1"], "no CUDA device"),
-    (["warmup", "--shapes", "64x64", "-d", "-2"], "not yet ported"),
+    (["warmup", "--shapes", "64x64", "-d", "-2"], "no CUDA device"),
 ])
 def test_warmup_cli_refuses_without_cuda_or_with_every_device(monkeypatch, argv, message):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

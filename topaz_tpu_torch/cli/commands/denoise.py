@@ -1,7 +1,8 @@
 """topaz denoise (topaz/commands/denoise.py): 2D micrograph denoising and
 noise2noise training (-a/-b or --hdf) with the JAX CLI's flags. -d -2
-raises a not-yet-ported error; --method, --preload and --num-workers are
-compatibility flags, as in the JAX CLI."""
+denoises each micrograph whole, split by rows over every CUDA device, and
+splits training batches over them; --method, --preload and --num-workers
+are compatibility flags, as in the JAX CLI."""
 import argparse
 
 from topaz_tpu_torch.device import parse_device_flag
@@ -14,7 +15,7 @@ def add_arguments(parser=None):
     if parser is None:
         parser = argparse.ArgumentParser(help)
 
-    parser.add_argument("-d", "--device", default=0, type=parse_device_flag, help="CUDA device index, -1 for the current CUDA device, or cpu to run on the CPU; -2 (all devices) is not yet ported (default: 0)")
+    parser.add_argument("-d", "--device", default=0, type=parse_device_flag, help="CUDA device index, -1 for the current CUDA device, -2 to denoise whole micrographs split over every CUDA device, or cpu to run on the CPU (default: 0)")
     parser.add_argument("micrographs", nargs="*", help="micrographs to denoise")
     parser.add_argument("-o", "--output", default="", help="directory to save denoised micrographs")
     parser.add_argument("--suffix", default="", help='suffix for output file names; defaults to ".denoised" when no output directory is given (default: none)')

@@ -1,7 +1,7 @@
 """topaz denoise3d (topaz/commands/denoise3d.py): tomogram denoising and
 noise2noise training on even/odd tomograms, with the JAX CLI's flags and
-defaults but one: ``-d`` defaults to 0, not -2 (every device, via the device
-mesh, which is not yet ported); on one card both run on that card."""
+defaults: ``-d`` defaults to -2, every CUDA device, over which training
+batches and patch batches are split (on one card, that card)."""
 import argparse
 
 from topaz_tpu_torch.device import parse_device_flag
@@ -43,7 +43,7 @@ def add_arguments(parser=None):
     parser.add_argument("--precision", choices=["f32", "bf16"], default="f32", help="inference precision: bf16 weights and activations with f32 statistics and output; f32 (TF32 off) keeps parity with the reference (default: f32)")
     parser.add_argument("--auto-patch", action="store_true", help="override -s with the patch size that processes the fewest voxels for each tomogram's dimensions (padded overlap plus grid overshoot)")
     parser.add_argument("-p", "--patch-padding", type=int, default=48, help="padding around each patch to remove edge artifacts (default: 48)")
-    parser.add_argument("-d", "--device", type=parse_device_flag, default=0, help="CUDA device index, -1 for the current CUDA device, or cpu to run on the CPU; -2 (all devices) is not yet ported (default: 0)")
+    parser.add_argument("-d", "--device", type=parse_device_flag, default=-2, help="CUDA device index, -1 for the current CUDA device, -2 to split the batches over every CUDA device, or cpu to run on the CPU (default: -2)")
 
     from topaz_tpu_torch.cli.fast import add_fast_flag
 

@@ -1,5 +1,6 @@
 """topaz extract (topaz/commands/extract.py): the JAX CLI's flags and
-defaults; ``-d -2`` raises a not-yet-ported error."""
+defaults; ``-d -2`` splits the batched path's batches over every CUDA
+device."""
 import argparse
 
 from topaz_tpu_torch.device import parse_device_flag
@@ -28,7 +29,7 @@ def add_arguments(parser=None):
     parser.add_argument("--step-radius", type=int, default=5, help="grid size when searching for optimal radius parameter (default: 5)")
     parser.add_argument("--targets", help="path to file specifying particle coordinates. used to find extraction radius that maximizes the AUPRC")
     parser.add_argument("--only-validate", action="store_true", help="flag indicating to only calculate validation metrics. does not report full prediction list")
-    parser.add_argument("-d", "--device", default=0, type=parse_device_flag, help="CUDA device index, or cpu to run on the CPU; -2 (all devices) is not yet ported (default: 0)")
+    parser.add_argument("-d", "--device", default=0, type=parse_device_flag, help="CUDA device index, -2 to split batched scoring over every CUDA device, or cpu to run on the CPU (default: 0)")
     parser.add_argument("-o", "--output", help="file path to write")
     parser.add_argument("--per-micrograph", action="store_true", help="write one particle file per micrograph at the location of the micrograph")
     parser.add_argument("--suffix", default="", help="optional suffix to add to particle file paths when using the --per-micrograph flag.")

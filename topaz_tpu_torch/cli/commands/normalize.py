@@ -1,6 +1,7 @@
 """topaz normalize (topaz/commands/normalize.py): the JAX CLI's flags;
-``--batch-size > 1`` fits shape-bucketed batches on one device, and the
-mesh path (-d -2) raises a not-yet-ported error."""
+``--batch-size > 1`` fits shape-bucketed batches on one device, and
+``-d -2`` fits them split over every device (one image a device unless
+``--batch-size`` says more)."""
 import argparse
 import sys
 
@@ -22,7 +23,7 @@ def add_arguments(parser=None):
     parser.add_argument("-a", "--alpha", default=900, type=float, help="alpha parameter of the beta distribution prior on the mixing proportion (default: 900)")
     parser.add_argument("-b", "--beta", default=1, type=float, help="beta parameter of the beta distribution prior on the mixing proportion (default: 1)")
     parser.add_argument("--metadata", action="store_true", help="if set, save parameter metadata for each micrograph")
-    parser.add_argument("-d", "--device", default=-1, type=parse_device_flag, help="CUDA device index, -1 for the current CUDA device, or cpu to run on the CPU; -2 (all devices) is not yet ported (default: -1)")
+    parser.add_argument("-d", "--device", default=-1, type=parse_device_flag, help="CUDA device index, -1 for the current CUDA device, -2 to batch micrographs and split the GMM fits over every CUDA device, or cpu to run on the CPU (default: -1)")
     parser.add_argument("--batch-size", default=1, type=int, help="fit this many micrographs at once on the device (shape-bucketed + masked) (default: 1)")
     parser.add_argument("-t", "--num-workers", type=int, default=0, help="number of parallel processes (compatibility flag; per-image fits run on the accelerator)")
     parser.add_argument("-j", "--num-threads", type=int, default=0, help="number of host threads (compatibility flag)")
@@ -41,12 +42,17 @@ def main(args):
     from topaz_tpu_torch.preprocess import normalize_images, normalize_images_batched
 
     apply_fast(args)  # --fast -> --bins 65536 (histogram EM)
-    if args.device == -2:
-        raise NotImplementedError(
-            "-d -2 (batched normalization sharded over every device) is not "
-            "yet ported to topaz_tpu_torch (ROADMAP P14)")
     formats = args.format_.split(",")
-    if args.batch_size > 1:
+    if args.device == -2 or args.batch_size > 1:
+        device, mesh = args.device, None
+        if args.device == -2:
+            from topaz_tpu_torch.parallel.devices import data_mesh_for, resolve_devices
+
+            devices = resolve_devices(-2)
+            device = devices[0]
+            # shrink to a device count that divides the batch
+            bs = args.batch_size if args.batch_size > 1 else len(devices)
+            mesh = data_mesh_for(devices, bs, warn=True)
         if args.sample is not None and args.sample > 1:
             # only when the user asked for subsampling
             print("# batched normalization fits all valid pixels; --sample "
@@ -56,8 +62,9 @@ def main(args):
             args.files, args.destdir, scale=args.scale, affine=args.affine,
             num_iters=args.niters, alpha=args.alpha, beta=args.beta,
             metadata=args.metadata, formats=formats, bins=args.bins,
-            verbose=args.verbose, batch_size=args.batch_size,
-            skip_errors=args.skip_errors, device=args.device,
+            verbose=args.verbose,
+            batch_size=args.batch_size if args.batch_size > 1 else 0,
+            skip_errors=args.skip_errors, device=device, mesh=mesh,
         )
         return
     normalize_images(

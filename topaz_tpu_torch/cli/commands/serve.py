@@ -1,6 +1,7 @@
 """topaz serve (topaz_tpu/cli/commands/serve.py): picking and denoising over
-HTTP. The JAX CLI's flags and defaults; ``-d`` takes an index, ``-1`` (the
-current CUDA device) or ``cpu``, and ``-d -2`` is not yet ported."""
+HTTP. The JAX CLI's flags and defaults; ``-d`` takes an index, ``cpu``, or
+``-1`` or ``-2``, which serve on the current CUDA device (the JAX CLI runs
+``-d < 0`` on its default device)."""
 import argparse
 
 from topaz_tpu_torch.device import parse_device_flag
@@ -28,7 +29,7 @@ def add_arguments(parser=None):
     parser.add_argument("--batch-window-ms", type=float, default=20.0, help="how long the device worker waits for more requests after the first before running a partial batch (default: 20 ms)")
     parser.add_argument("--queue-depth", type=int, default=64, help="requests queued for the device beyond this get 503 (backpressure; default: 64)")
     parser.add_argument("--device-timeout", type=float, default=300.0, help="per-request device deadline in seconds: requests unanswered by then get 504, and a worker wedged mid-call is replaced so later requests recover (0 disables; default: 300)")
-    parser.add_argument("-d", "--device", default=0, type=parse_device_flag, help="CUDA device index, -1 for the current one, or cpu to run on the CPU; -2 (all devices) is not yet ported (default: 0)")
+    parser.add_argument("-d", "--device", default=0, type=parse_device_flag, help="CUDA device index, -1 or -2 for the current one, or cpu to run on the CPU (default: 0)")
     from topaz_tpu_torch.cli.fast import add_fast_flag
 
     add_fast_flag(parser)

@@ -1,8 +1,8 @@
 """topaz train (topaz/commands/train.py): PU picker training on micrographs
 or tomograms (--dims 3, --augment-3d), with the autoencoder regularizer
 (--autoencoder), with the JAX CLI's flags and defaults; --model takes an
-.npz checkpoint or a reference .sav. -d -2 exits with a not-yet-ported
-error naming its ROADMAP item (P14)."""
+.npz checkpoint or a reference .sav. -d -2 trains data-parallel over every
+CUDA device, and over processes when TOPAZ_COORDINATOR is set."""
 import argparse
 
 from topaz_tpu_torch.device import parse_device_flag
@@ -16,7 +16,7 @@ def add_arguments(parser=None):
         parser = argparse.ArgumentParser(help)
 
     parser.add_argument("--describe", action="store_true", help="only prints a description of the model, does not train")
-    parser.add_argument("-d", "--device", default=0, type=parse_device_flag, help="CUDA device index, -1 for the current CUDA device, or cpu to run on the CPU; -2 (all devices) is not yet ported (default: 0)")
+    parser.add_argument("-d", "--device", default=0, type=parse_device_flag, help="CUDA device index, -1 for the current CUDA device, -2 to train data-parallel over every CUDA device, or cpu to run on the CPU (default: 0)")
     parser.add_argument("--num-workers", default=0, type=int, help="number of worker processes for data augmentation (compatibility flag)")
     parser.add_argument("-j", "--num-threads", type=int, default=0, help="number of host threads (compatibility flag)")
 

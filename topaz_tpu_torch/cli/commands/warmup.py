@@ -1,7 +1,7 @@
 """topaz warmup (topaz_tpu/cli/commands/warmup.py): build the CUDA kernels
 and run the acquisition-shaped programs once before a session. The JAX
-CLI's flags and defaults; ``-d cpu`` runs on the CPU, ``-d -2`` is not yet
-ported."""
+CLI's flags and defaults; ``-d cpu`` runs on the CPU, ``-d -2`` warms the
+pipeline split over every CUDA device."""
 import argparse
 
 from topaz_tpu_torch.device import parse_device_flag
@@ -24,7 +24,7 @@ def add_arguments(parser=None):
     parser.add_argument("-t", "--threshold", type=float, default=-6.0, help="pick threshold (default: -6)")
     parser.add_argument("--bins", type=int, default=0, help="histogram-EM bins, as the acquisition run will use (0 = exact EM; 65536 matches --fast)")
     parser.add_argument("--precision", choices=["f32", "bf16"], default="f32", help="denoise-arm precision to warm (default: f32)")
-    parser.add_argument("-d", "--device", default=0, type=parse_device_flag, help="CUDA device index, -1 for the current one, or cpu to run on the CPU; -2 (all devices) is not yet ported (default: 0)")
+    parser.add_argument("-d", "--device", default=0, type=parse_device_flag, help="CUDA device index, -1 for the current one, -2 for every CUDA device, or cpu to run on the CPU (default: 0)")
     from topaz_tpu_torch.cli.fast import add_fast_flag
 
     add_fast_flag(parser)

@@ -1,6 +1,7 @@
 """topaz watch (topaz_tpu/cli/commands/watch.py): stream micrographs through
 the batched pipeline as a microscope writes them. The JAX CLI's flags and
-defaults; ``-d cpu`` runs on the CPU, ``-d -2`` is not yet ported."""
+defaults; ``-d cpu`` runs on the CPU, ``-d -2`` splits the batches over
+every CUDA device."""
 import argparse
 
 from topaz_tpu_torch.device import parse_device_flag
@@ -35,7 +36,7 @@ def add_arguments(parser=None):
     parser.add_argument("--fail-fast", action="store_true", help="abort on unreadable files instead of skipping them with a warning (a live acquisition directory defaults to skipping)")
     parser.add_argument("--precision", choices=["f32", "bf16"], default="f32", help="denoise-arm precision; picks stay f32 either way (default: f32)")
     parser.add_argument("--bins", type=int, default=0, help="histogram-EM normalization bins (0 = exact EM; 65536 matches --fast)")
-    parser.add_argument("-d", "--device", default=0, type=parse_device_flag, help="CUDA device index, -1 for the current one, or cpu to run on the CPU; -2 (all devices) is not yet ported (default: 0)")
+    parser.add_argument("-d", "--device", default=0, type=parse_device_flag, help="CUDA device index, -1 for the current one, -2 for every CUDA device, or cpu to run on the CPU (default: 0)")
     from topaz_tpu_torch.cli.fast import add_fast_flag
 
     add_fast_flag(parser)

@@ -3,10 +3,10 @@ topaz_tpu/cli/main.py).
 
 Same subcommand convention as the reference (topaz/main.py:53-148): each
 command module exposes ``name``, ``help``, ``add_arguments(parser)`` and
-``main(args)``. Every command of the JAX CLI runs. A command of the JAX CLI
-that the port did not run would be listed in ``NOT_PORTED``, and invoking
-it would exit with an error that says so; so does a flag of a ported
-command whose path is not ported (``-d -2``).
+``main(args)``. Every command of the JAX CLI runs, ``-d -2`` (every CUDA
+device) included. A command of the JAX CLI that the port did not run would
+be listed in ``NOT_PORTED``, and invoking it would exit with an error that
+says so.
 """
 
 from __future__ import annotations
@@ -14,14 +14,14 @@ from __future__ import annotations
 import argparse
 import sys
 
-# commands of the JAX CLI (topaz_tpu/cli/commands/) not yet ported: none
+# commands of the JAX CLI (topaz_tpu/cli/commands/) that the port lacks: none
 NOT_PORTED = ()
 
 
 def _not_ported(name: str):
     def run(args):
         raise NotImplementedError(
-            f"command {name!r} is not yet ported to topaz_tpu_torch")
+            f"command {name!r} is not ported to topaz_tpu_torch")
     return run
 
 
@@ -33,7 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m topaz_tpu_torch",
         fromfile_prefix_chars="@",
         description="PyTorch/CUDA port of topaz_tpu. Every command of the JAX CLI "
-                    "runs; -d -2 (every device) is not yet ported.",
+                    "runs, -d -2 (every CUDA device) included.",
     )
     parser.add_argument("--version", action="version", version=topaz_tpu_torch.__version__)
     subparsers = parser.add_subparsers(title="commands", metavar="<command>")
@@ -44,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
         module.add_arguments(sub)
         sub.set_defaults(func=module.main)
     for name in NOT_PORTED:
-        sub = subparsers.add_parser(name, help="(not yet ported)", add_help=False)
+        sub = subparsers.add_parser(name, help="(not ported)", add_help=False)
         sub.set_defaults(func=_not_ported(name))
     return parser
 

@@ -19,6 +19,12 @@ and the result is fetched once; larger volumes, or a resident run that
 exhausts device memory, stream batches of host-cut patches instead.
 Training (``train_denoiser``) runs an eager autograd step a batch and keeps
 the losses on the device until the epoch ends.
+
+With several ``devices`` (``-d -2``, parallel/devices.py) whole images and
+tomograms are denoised split by rows over them with halos
+(parallel/mesh.make_halo_denoiser), frame batches, 3D patch batches and
+training batches are split over them with a copy of the model on each, as
+the JAX package shards them over its mesh.
 """
 
 from __future__ import annotations
@@ -44,6 +50,9 @@ from topaz_tpu_torch.models.denoise_factory import (
     save_denoiser,
 )
 from topaz_tpu_torch.ops import fourier
+from topaz_tpu_torch.parallel.devices import data_mesh_for, resolve_devices
+from topaz_tpu_torch.parallel.mesh import (make_halo_denoiser, make_mesh, replicas,
+                                           split_apply, summed_grads, sync_replicas)
 from topaz_tpu_torch.ops.filters import (
     apply_kernel,
     correct_spatial_covariance,
@@ -79,16 +88,19 @@ class Denoise:
     alias or checkpoint path (``model``), a JAX parameter tree (``meta``,
     ``params``) or a module (``net``). ``last_route`` names the route the
     last ``denoise_batch`` took: "batched" (one forward) or "frames" (one
-    frame at a time, after the batch ran out of device memory)."""
+    frame at a time, after the batch ran out of device memory).
+    ``devices`` (two or more; the first is ``device``) split whole images
+    by rows and frame batches over them (the JAX package's ``devices``)."""
 
     dims = 2
     last_route = None
 
     def __init__(self, model: str = "unet", device="cuda", *, meta=None,
-                 params=None, dtype=None, net=None):
+                 params=None, dtype=None, net=None, devices=None):
         if dtype not in (None, "f32", "bf16"):
             raise ValueError(f"unsupported denoise dtype {dtype!r}: use f32 or bf16")
-        self.device = resolve_device(device)
+        self.devices = [torch.device(d) for d in devices] if devices else None
+        self.device = resolve_device(self.devices[0] if self.devices else device)
         if net is None:
             net = (denoiser_from_numpy(meta, params) if meta is not None
                    else load_denoiser(model, device=self.device))
@@ -101,29 +113,69 @@ class Denoise:
         # smallest whole-image pixel count that ran out of device memory in
         # this instance; images this large go straight to patches
         self._oom_area = None
+        self._halo_fns = {}  # (padded shape, shards, halo) -> halo denoiser
+        self._copies = {}    # the model's copies on the other devices
 
     @classmethod
-    def from_arch(cls, arch: str, device="cuda", dtype=None, **arch_kw):
+    def from_arch(cls, arch: str, device="cuda", dtype=None, devices=None, **arch_kw):
         """An untrained denoiser from an architecture name (the reference's
         fresh-model branch, topaz/commands/denoise.py:88-98); ``arch_kw``
         are ``new_denoiser``'s nf, base_width, top_width and seed."""
-        return cls(device=device, dtype=dtype,
+        return cls(device=device, dtype=dtype, devices=devices,
                    net=new_denoiser(arch, dims=cls.dims, **arch_kw))
 
-    def _normalized_forward(self, xb: torch.Tensor) -> torch.Tensor:
+    def _normalized_forward(self, xb: torch.Tensor, model=None) -> torch.Tensor:
         """(B, *spatial) frames or patches, each normalized by its own mean
-        and std, denoised, and restored to its own scale."""
+        and std, denoised (by ``model``, default this denoiser's), and
+        restored to its own scale."""
         axes = tuple(range(1, xb.ndim))
         mu = xb.mean(dim=axes, keepdim=True)
         std = _std(xb, dim=axes, keepdim=True)
         with torch.inference_mode():
-            y = self.model(((xb - mu) / std)[:, None].to(self.dtype))[:, 0]
+            y = (model or self.model)(((xb - mu) / std)[:, None].to(self.dtype))[:, 0]
         return y.float() * std + mu
+
+    def _sharded_forward(self, xb: torch.Tensor) -> torch.Tensor:
+        """``_normalized_forward`` with the batch split over the data mesh
+        of ``devices`` that divides it (one device when none does)."""
+        mesh = data_mesh_for(self.devices, xb.shape[0])
+        devices = mesh.data_devices if mesh is not None else [self.device]
+        reps = replicas(self.model, devices, self._copies)
+        return split_apply(lambda i, dev, x: self._normalized_forward(x, reps[i]), devices, xb,
+                           out_device=self.device)
+
+    # a shard (and its aprons) must survive the deepest U-Net's five 2x
+    # pooling levels, so never shard below this many leading rows
+    _MIN_HALO_BLOCK = 32
+
+    def _apply_halo(self, x: torch.Tensor):
+        """Whole-image denoising with the rows (z-slabs in 3D) split over
+        ``devices`` (topaz_tpu/denoise.py:128-159): as many shards as give
+        each at least 32 rows, the image padded by edge rows to a multiple
+        of them, a halo of up to 256 rows. None (the caller uses one device)
+        below two shards."""
+        if self.devices is None or len(self.devices) < 2:
+            return None
+        n = min(len(self.devices), max(1, x.shape[0] // self._MIN_HALO_BLOCK))
+        if n < 2:
+            return None
+        pad = (-x.shape[0]) % n
+        xp = torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))]) if pad else x
+        halo = max(1, min(256, xp.shape[0] // n))
+        key = (tuple(xp.shape), n, halo)
+        if key not in self._halo_fns:
+            self._halo_fns[key] = make_halo_denoiser(
+                self.model, make_mesh(n_data=1, n_space=n, devices=self.devices[:n]),
+                halo=halo)
+        return self._halo_fns[key](xp)[: x.shape[0]]
 
     def _apply(self, x: torch.Tensor) -> torch.Tensor:
         """Denoise one whole image with its own statistics
         (topaz/denoise.py:274-296). In 2D a device out-of-memory falls back
         to patch denoising with a warning, on the same device."""
+        y = self._apply_halo(x)
+        if y is not None:
+            return y
         if self._oom_area is not None and x.numel() >= self._oom_area:
             return self._patch_fallback(x)
         try:
@@ -202,7 +254,7 @@ class Denoise:
         _check_min_extent(self.meta, frames.shape[1:], "frames",
                           "the frame size or pick a shallower arch (unet-small)")
         try:
-            out = self._normalized_forward(frames)
+            out = self._sharded_forward(frames)
             self.last_route = "batched"
             return out
         except torch.cuda.OutOfMemoryError:
@@ -219,7 +271,8 @@ class Denoise:
         (``train_denoiser``'s keywords)."""
         if self.dtype != torch.float32:
             raise ValueError("denoiser training runs in float32; load the model without bf16")
-        train_denoiser(self.model, train_sampler, val_sampler, dims=self.dims, **kw)
+        train_denoiser(self.model, train_sampler, val_sampler, dims=self.dims,
+                       devices=self.devices, **kw)
 
 
 def auto_patch_size(shape, padding: int = 48, max_extent: int = 256,
@@ -270,9 +323,10 @@ class Denoise3D(Denoise):
         """Patch denoising with the volume resident on the device: upload
         and zero-pad it once, cut each padded patch there, apply the volume's
         and the patch's statistics, write the patch's centre into a device
-        output, and fetch it once. Returns None (the caller streams) over the
-        residency cap or when the device runs out of memory."""
-        if tomo.nbytes > self._DEVICE_RESIDENT_CAP:
+        output, and fetch it once. Returns None (the caller streams) with
+        several devices (the streaming route splits its batches over them),
+        over the residency cap or when the device runs out of memory."""
+        if data_mesh_for(self.devices) is not None or tomo.nbytes > self._DEVICE_RESIDENT_CAP:
             return None
         s, p = patch_size, padding
         ext = [-(-int(n) // s) * s for n in tomo.shape]
@@ -313,7 +367,13 @@ class Denoise3D(Denoise):
         patches cut on the host, normalized by the volume's statistics,
         denoised ``batch_size`` at a time with their own statistics (the last
         batch filled with copies of its last patch), centres stitched on the
-        host."""
+        host. With several devices the batch grows to a multiple of their
+        count and is split over them."""
+        mesh = data_mesh_for(self.devices)
+        if mesh is not None:
+            n_data = mesh.shape["data"]
+            batch_size = max(batch_size, n_data)
+            batch_size += (-batch_size) % n_data
         mu, std = tomo.mean(), tomo.std()
         denoised = np.zeros_like(tomo)
         d = patch_size + 2 * padding
@@ -337,7 +397,7 @@ class Denoise3D(Denoise):
             while len(xs) < batch_size:
                 xs.append(xs[-1])
             xn = (np.stack(xs) - mu) / std
-            ys = self._normalized_forward(torch.from_numpy(xn).to(self.device)).cpu().numpy()
+            ys = self._sharded_forward(torch.from_numpy(xn).to(self.device)).cpu().numpy()
             ys = ys * std + mu
             for (i, j, k), y in zip(chunk, ys):
                 patch = denoised[i:i + patch_size, j:j + patch_size, k:k + patch_size]
@@ -375,7 +435,8 @@ class Denoise3D(Denoise):
                 return out
             if device_resident:
                 raise ValueError("device_resident=True requested but the volume cannot stay "
-                                 "resident (over the residency cap or out of device memory)")
+                                 "resident (several devices, over the residency cap or out "
+                                 "of device memory)")
         self.last_route = "streaming"
         return self._denoise_streaming(tomo, patch_size, padding, batch_size, volume_num,
                                        total_volumes, verbose)
@@ -412,16 +473,23 @@ def make_denoise_optimizer(model: torch.nn.Module, optim: str = "adagrad", lr: f
     return make_optimizer(params, lr, optim, weight_decay=weight_decay)
 
 
-def make_denoise_step(model: torch.nn.Module, optimizer, loss_fn: str = "L2"):
+def make_denoise_step(model: torch.nn.Module, optimizer, loss_fn: str = "L2", mesh=None):
     """``step(src, tgt, gamma) -> loss``: one eager autograd step on (B,
     *spatial) device tensors, updating the model in place. The loss stays on
-    the device."""
+    the device. With a data ``mesh`` each device forwards its share of the
+    batch through its copy of the model, the loss is the whole batch's and
+    the copies' gradients are summed into the model's."""
     params = optimizer.params
+    copies: dict = {}
 
     def step(src: torch.Tensor, tgt: torch.Tensor, gamma: float) -> torch.Tensor:
-        loss = denoise_loss(loss_fn, model(src[:, None])[:, 0], tgt, gamma)
-        grads = torch.autograd.grad(loss, params)
-        optimizer.step(list(grads))
+        devices = mesh.data_devices if mesh is not None else [src.device]
+        reps = replicas(model, devices, copies)
+        sync_replicas(model, reps)
+        pred = split_apply(lambda i, dev, x: reps[i](x[:, None])[:, 0], devices, src,
+                           out_device=src.device)
+        loss = denoise_loss(loss_fn, pred, tgt, gamma)
+        optimizer.step(summed_grads(loss, params, reps))
         return loss.detach()
 
     return step
@@ -451,13 +519,15 @@ def train_denoiser(model: torch.nn.Module, train_sampler, val_sampler, loss_fn: 
                    batch_size: int = 10, num_epochs: int = 500, num_workers: int = 1,
                    verbose: bool = True, save_best: bool = False,
                    save_interval: Optional[int] = None, save_prefix: Optional[str] = None,
-                   dims: int = 2) -> torch.nn.Module:
+                   dims: int = 2, devices=None) -> torch.nn.Module:
     """noise2noise training (topaz_tpu/denoise.py:685-840) of ``model`` in
     place, on its device: L0 (annealed), L1 or L2; adagrad, adam or sgd;
     save-best on the validation loss and every ``save_interval`` epochs to
     ``<save_prefix>_epoch<n>.npz``. Rows go to stdout as the JAX package
     prints them. ``num_workers`` is a compatibility argument. Each epoch
-    runs in a ``stage("denoise_train_epoch")`` span."""
+    runs in a ``stage("denoise_train_epoch")`` span. With several
+    ``devices`` the training batches are split over the data mesh that
+    divides ``batch_size`` (topaz_tpu/denoise.py:703-709)."""
     if loss_fn not in LOSSES:
         raise ValueError(f"Loss function: {loss_fn} not one of [L0, L1, L2].")
     output, log = sys.stdout, sys.stderr
@@ -475,8 +545,11 @@ def train_denoiser(model: torch.nn.Module, train_sampler, val_sampler, loss_fn: 
     print(f"# starting time: {now.month:02d}/{now.day:02d}/{now.year:04d} "
           f"{now.hour:02d}h:{now.minute:02d}m:{now.second:02d}s", file=log)
 
+    mesh = data_mesh_for(devices, batch_size, warn=True)
+    if mesh is not None:
+        print(f"# training sharded over {mesh.shape['data']} devices", file=log)
     optimizer = make_denoise_optimizer(model, optim, lr, weight_decay)
-    step = make_denoise_step(model, optimizer, loss_fn)
+    step = make_denoise_step(model, optimizer, loss_fn, mesh=mesh)
 
     print("# training model...", file=log)
     if verbose:
@@ -741,17 +814,25 @@ def _train_pair_given(a, b, flags: str) -> bool:
 def denoise_main(args):
     """topaz denoise (topaz/commands/denoise.py:75-130): with -a/-b or
     --hdf, train the --arch model (the bundled weights where --arch names
-    them) and denoise with it; otherwise denoise with the -m models."""
-    device = resolve_device(args.device)
+    them) and denoise with it; otherwise denoise with the -m models. With
+    several devices (-d -2) each micrograph is denoised whole, split by rows
+    over them, instead of in patches."""
+    devices = resolve_devices(args.device)
+    device = devices[0]
+    if len(devices) > 1:
+        print(f"# denoising sharded over {len(devices)} devices", file=sys.stderr)
+        args.patch_size = -1
+    else:
+        devices = None
     do_train = _train_pair_given(args.dir_a, args.dir_b, "-a/--dir-a and -b/--dir-b")
     if do_train or args.hdf is not None:
         from topaz_tpu_torch.train.denoise_data import (make_hdf5_samplers,
                                                         make_paired_images_samplers)
 
         try:
-            denoiser = Denoise(args.arch, device=device)
+            denoiser = Denoise(args.arch, device=device, devices=devices)
         except FileNotFoundError:
-            denoiser = Denoise.from_arch(args.arch, device=device)
+            denoiser = Denoise.from_arch(args.arch, device=device, devices=devices)
         if args.hdf is None:
             train_s, val_s = make_paired_images_samplers(
                 args.dir_a, args.dir_b, crop=args.crop, holdout=args.holdout,
@@ -770,7 +851,7 @@ def denoise_main(args):
                 print("# Warning: no denoising model will be used", file=sys.stderr)
                 continue
             print("# Loading model:", name, file=sys.stderr)
-            models.append(Denoise(name, device=device, dtype=args.precision))
+            models.append(Denoise(name, device=device, dtype=args.precision, devices=devices))
     if not models or len(args.micrographs) < 1:
         return
 
@@ -802,16 +883,22 @@ class _TileSampler:
 def denoise3d_main(args):
     """topaz denoise3d (topaz/commands/denoise3d.py:88-130): with -a/-b,
     train (the -m model if it loads, else a fresh 3D unet) on even/odd tile
-    pairs; then denoise the volumes."""
-    device = resolve_device(args.device)
+    pairs; then denoise the volumes. With several devices (-d -2, the
+    default) training batches and patch batches are split over them."""
+    devices = resolve_devices(args.device)
+    device = devices[0]
+    if len(devices) > 1:
+        print(f"# denoising on {len(devices)} devices", file=sys.stderr)
+    else:
+        devices = None
     if _train_pair_given(args.even_train_path, args.odd_train_path,
                          "-a/--even-train-path and -b/--odd-train-path"):
         from topaz_tpu_torch.train.denoise_data import PairedTiles3D
 
         try:
-            denoiser = Denoise3D(args.model, device=device)
+            denoiser = Denoise3D(args.model, device=device, devices=devices)
         except FileNotFoundError:
-            denoiser = Denoise3D.from_arch("unet", device=device,
+            denoiser = Denoise3D.from_arch("unet", device=device, devices=devices,
                                            base_width=args.base_kernel_width)
         data = PairedTiles3D(args.even_train_path, args.odd_train_path, args.crop,
                              args.N_train, args.N_test)
@@ -826,7 +913,8 @@ def denoise3d_main(args):
             return
         print("# Loading model:", args.model, file=sys.stderr)
         try:
-            denoiser = Denoise3D(args.model, device=device, dtype=args.precision)
+            denoiser = Denoise3D(args.model, device=device, dtype=args.precision,
+                                 devices=devices)
         except FileNotFoundError as e:
             print(f"Error: {e}", file=sys.stderr)
             print("Hint: the 3D pretrained weights are not bundled in this installation; "

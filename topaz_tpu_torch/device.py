@@ -1,13 +1,14 @@
-"""Device selection for the port (single-device part of
-topaz_tpu/parallel/devices.py:70-92).
+"""Device selection for the port (the single-device part of
+topaz_tpu/parallel/devices.py:70-92; device lists are parallel/devices.py).
 
 Everything runs on a CUDA device unless the caller asks for the CPU by name.
 There is no fallback: with no GPU, or a GPU index that does not exist, the
 request raises instead of running somewhere else.
 
 CLI ``-d/--device`` values: ``N >= 0`` -> ``cuda:N``, ``-1`` -> the current
-CUDA device, ``cpu`` -> the CPU. ``-2`` (every device, the mesh paths) is not
-ported yet.
+CUDA device, ``cpu`` -> the CPU, ``-2`` -> the first of every visible CUDA
+device (``parallel.devices.resolve_devices`` gives them all, for the paths
+that shard over them).
 """
 
 from __future__ import annotations
@@ -38,9 +39,9 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     names a CUDA device that is not there."""
     if isinstance(device, int):
         if device == -2:
-            raise NotImplementedError(
-                "-d -2 (every device, via the device mesh) is not yet ported "
-                "to topaz_tpu_torch (ROADMAP P14)")
+            from topaz_tpu_torch.parallel.devices import resolve_devices
+
+            return resolve_devices(-2)[0]
         if device < -1:
             raise ValueError(f"invalid device index {device}")
         device = "cuda" if device == -1 else f"cuda:{device}"

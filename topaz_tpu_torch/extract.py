@@ -5,7 +5,9 @@ Each micrograph is scored on the device, whole or in tiles
 (``patch_size``; tomograms always in 96^3 tiles), and its score map stays
 there for the NMS rounds, whose 2D disk max-filter is the CUDA kernel; only
 the accepted peaks come back to the host. ``batch_size > 1`` scores and
-suppresses shape-bucketed batches through pipeline.MicrographPipeline.
+suppresses shape-bucketed batches through pipeline.MicrographPipeline;
+``device=-2`` splits those batches over every device (a (data, space)
+mesh, ``hybrid_mesh_for``), one micrograph a device by default.
 
 With labeled ``targets`` every score map is kept on the device and the NMS
 rounds run again on it at each radius of the grid (``find_opt_radius``), or
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from topaz_tpu_torch.device import resolve_device
+from topaz_tpu_torch.parallel.devices import hybrid_mesh_for, resolve_devices
 from topaz_tpu_torch.io.coordinates import Coordinates, read_coordinates, write_table
 from topaz_tpu_torch.io.image import load_image
 from topaz_tpu_torch.ops.metrics import average_precision, match_coordinates
@@ -223,7 +226,10 @@ def extract_particles(
     and write the picks (topaz_tpu/extract.py:164-362). With ``batch_size >
     1``, a model, a radius and neither targets nor patches, 2D micrographs
     go through the batched pipeline; ``skip_errors`` lets it go on past
-    unreadable files."""
+    unreadable files. ``device=-2`` takes every device: batches (of one
+    micrograph a device unless ``batch_size`` says more) are split over
+    them; the paths that score one micrograph at a time run on the first,
+    with a warning, as in the JAX package."""
     radius = radius if radius is not None else -1
     if targets is None and radius < 0:
         raise ValueError(
@@ -232,7 +238,11 @@ def extract_particles(
     if per_micrograph and output is None and not only_validate:
         raise ValueError("--per-micrograph writes its files into -o/--output (a "
                          "directory, or a file path whose directory gets COORDS/)")
-    device = resolve_device(device)
+    every = isinstance(device, int) and device == -2
+    devices = resolve_devices(device)
+    device = devices[0]
+    if every and batch_size <= 1:
+        batch_size = len(devices)
 
     report("Beginning extraction")
     paths = list(paths) if paths else list(stream_inputs(sys.stdin))
@@ -240,11 +250,20 @@ def extract_particles(
 
     use_batched = (batch_size > 1 and model not in (None, "none") and dims == 2
                    and targets is None and not patch_size and not only_validate)
+    if every and len(devices) > 1 and not use_batched:
+        print("# WARNING: -d -2 multi-device scoring needs the batched path (2D, a "
+              "model, an explicit radius, and no --targets/--only-validate/"
+              "--patch-size); scoring on one device", file=sys.stderr)
     if use_batched:
         from topaz_tpu_torch.pipeline import MicrographPipeline
 
+        mesh = hybrid_mesh_for(devices if every else None, batch_size, warn=True)
+        if mesh is not None:
+            nd, ns = mesh.shape["data"], mesh.shape["space"]
+            report(f"Batched scoring sharded over {nd * ns} devices"
+                   + (f" ({nd} batch x {ns} spatial)" if ns > 1 else ""))
         pipe = MicrographPipeline(model=model, scale=1, radius=radius,
-                                  threshold=threshold, normalize=False,
+                                  threshold=threshold, normalize=False, mesh=mesh,
                                   skip_errors=skip_errors, device=device)
         _write_picks(pipe.process(paths, batch_size=batch_size), output, per_micrograph,
                      suffix, out_format, scale, dims, verbose)

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from topaz_tpu_torch.models.layers import batch_norm_train
+
 
 def generator_width(depth: int) -> int:
     """Side of the decoder's output for ``depth`` stride-2 layers."""
@@ -60,8 +62,7 @@ class Generator(nn.Module):
         for i, ((_, stride, pad), w) in enumerate(zip(self.spec, self.weights)):
             h = F.conv_transpose2d(h, w, stride=stride, padding=pad)
             if i < last:
-                h = F.batch_norm(h, None, None, self.bn_scale[i], self.bn_bias[i],
-                                 training=True, eps=1e-5)
+                h = batch_norm_train(h, self.bn_scale[i], self.bn_bias[i], None, None)
                 h = F.leaky_relu(h, 0.01)
         return h[:, 0]
 

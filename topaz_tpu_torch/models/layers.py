@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from topaz_tpu_torch.parallel.mesh import shared_sum
+
 
 # ---------------------------------------------------------------------------
 # layer specs
@@ -172,10 +174,26 @@ def batch_norm_train(x: torch.Tensor, scale, bias, mean, var,
                      momentum: float = 0.1, eps: float = 1e-5) -> torch.Tensor:
     """Train-mode batchnorm with torch semantics (topaz_tpu/models/
     layers.py:191-209): normalizes with the batch's biased variance and
-    updates the running ``mean`` and ``var`` buffers in place, ``var`` with
-    the unbiased variance, at ``momentum``."""
-    return F.batch_norm(x, mean, var, scale, bias, training=True,
-                        momentum=momentum, eps=eps)
+    updates the running ``mean`` and ``var`` buffers in place (when given),
+    ``var`` with the unbiased variance, at ``momentum``. In a shard of a
+    data-parallel step (parallel/mesh.StatSync) the batch is the step's
+    whole batch: the per-channel sums of every shard and process."""
+    allsum = shared_sum()
+    if allsum is None:
+        return F.batch_norm(x, mean, var, scale, bias, training=True,
+                            momentum=momentum, eps=eps)
+    axes = [0] + list(range(2, x.dim()))
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    sums = allsum(torch.cat([x.sum(axes), x.new_full((1,), x.numel() // x.shape[1])]))
+    n = sums[-1]
+    centred = x - (sums[:-1] / n).reshape(shape)
+    biased = allsum((centred * centred).sum(axes)) / n
+    if mean is not None:
+        with torch.no_grad():
+            mean.lerp_(sums[:-1] / n, momentum)
+            var.lerp_(biased * n / (n - 1), momentum)
+    return (centred * torch.rsqrt(biased + eps).reshape(shape) * scale.reshape(shape)
+            + bias.reshape(shape))
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -32,6 +33,9 @@ from topaz_tpu_torch.ops.nms import disk_max as disk_max_plain
 
 # launches of the kernel in this process; callers may reset it to 0
 launches = 0
+# the shards of a mesh call the kernel from threads of their own
+# (parallel/mesh.run_each): one build, and no lost count
+_lock = threading.Lock()
 
 _ENTRY = {torch.float32: ("disk_max_f32", ctypes.c_float, float),
           torch.int32: ("disk_max_i32", ctypes.c_int, int)}
@@ -41,7 +45,8 @@ _ENTRY = {torch.float32: ("disk_max_f32", ctypes.c_float, float),
 def _library() -> ctypes.CDLL:
     from topaz_tpu_torch._build import build_library
 
-    lib = ctypes.CDLL(build_library("disk_max"))
+    with _lock:
+        lib = ctypes.CDLL(build_library("disk_max"))
     for name, ctype, _ in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -98,5 +103,6 @@ def disk_max(x: torch.Tensor, r: int, init) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"disk_max kernel launch failed with CUDA error {err}")
     global launches
-    launches += 1
+    with _lock:
+        launches += 1
     return out

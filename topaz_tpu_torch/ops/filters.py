@@ -1,6 +1,6 @@
 """Classical image filters: Gaussian, inverse-Gaussian and the whitening
 ("unblur") deconvolution filter estimated from the image's own
-autocovariance (port of topaz_tpu/ops/filters.py:20-87,132-162, the
+autocovariance (port of topaz_tpu/ops/filters.py:20-162, the
 reference's topaz/filters.py and topaz/denoise.py:22-172).
 
 Kernels are built on the host in numpy; images are 2D tensors (volumes 3D
@@ -92,12 +92,36 @@ def estimate_unblur_filter(x, width: int = 11, device="cuda") -> Tuple[np.ndarra
     return w_inv.astype(np.float32), cov
 
 
-def estimate_unblur_filter_gaussian(x, width: int = 11, s: int = 11):
-    """The Gaussian-parameterized whitening filter (topaz/denoise.py:77-127),
-    dead code upstream: no command calls it."""
-    raise NotImplementedError(
-        "estimate_unblur_filter_gaussian is not yet ported to topaz_tpu_torch "
-        "(ROADMAP P13)")
+def estimate_unblur_filter_gaussian(x, width: int = 11, s: int = 11, device="cuda"):
+    """The Gaussian-parameterized whitening filter (topaz/denoise.py:77-127,
+    topaz_tpu/ops/filters.py:90-130; dead code upstream, no command calls
+    it): fit (sigma, alpha) in log space so that the Gaussian kernel
+    correlated with itself best matches the autocovariance, then return the
+    inverse of that filter. The loss and its gradient (autograd) run on
+    ``device``; the 2-parameter BFGS runs on the host (scipy). Returns
+    (inverse kernel, sigma, alpha, covariance)."""
+    from scipy.optimize import minimize
+
+    cov = spatial_covariance(x, n=width, device=device)
+    dim = s // 2
+    r = torch.arange(-dim, dim + 1, device=cov.device)
+    d = (r[:, None] ** 2 + r[None, :] ** 2).to(torch.float32)
+    p = width // 2
+
+    def fun(params):
+        t = torch.tensor(params, dtype=torch.float32, device=cov.device, requires_grad=True)
+        sigma, alpha = torch.exp(t[0]), torch.exp(t[1])
+        w = alpha * torch.exp(-0.5 * d / sigma ** 2)
+        c_w = F.conv2d(w[None, None], w[None, None], padding=p)[0, 0]
+        loss = torch.sum((c_w - cov) ** 2)
+        loss.backward()
+        return float(loss.detach()), t.grad.cpu().numpy().astype(np.float64)
+
+    result = minimize(fun, np.zeros(2), jac=True)
+    sigma = float(np.exp(result.x[0]))
+    alpha = float(np.exp(result.x[1]))
+    w_inv = inverse_filter(gaussian_filter(sigma, s=s) * alpha)
+    return w_inv.astype(np.float32), sigma, alpha, cov.cpu().numpy()
 
 
 def correct_spatial_covariance(x, width: int = 11, patch: int = 1,

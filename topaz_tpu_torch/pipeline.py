@@ -1,4 +1,4 @@
-"""Batched micrograph pipeline (port of topaz_tpu/pipeline.py, one device):
+"""Batched micrograph pipeline (port of topaz_tpu/pipeline.py):
 mixed-size micrograph sets -> [downsample ->] masked GMM normalization ->
 dense scoring -> greedy NMS [-> denoise], B micrographs at a time.
 
@@ -24,6 +24,12 @@ whose disk max-filter is the CUDA kernel of ops/disk_max.py at (B, bh, bw);
 only the pick tables (and the denoised images) come back, with one
 synchronisation a batch. Loader threads read files (and run the host FFT)
 while the device works.
+
+Over a ``mesh`` (parallel/mesh.py) each batch is split over the data axis,
+each data row running the whole batch function on its share with its own
+copies of the models; where the mesh also has a ``space`` axis, each image
+is scored with its rows split over that row's devices (halo scoring), as
+the JAX package shards a bucket over (data, space).
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ from topaz_tpu_torch.models.factory import load_picker
 from topaz_tpu_torch.ops.fourier import downsample, downsample_numpy
 from topaz_tpu_torch.ops.gmm import norm_fit, norm_fit_hist
 from topaz_tpu_torch.ops.nms import NEG, nms_topk_batched
+from topaz_tpu_torch.parallel.mesh import (Mesh, make_halo_dense_scorer, replicas,
+                                           split_apply)
 from topaz_tpu_torch.utils.batching import (fetch_async, iterate_prefetched, load_batches,
                                              round_bucket, valid_mask)
 from topaz_tpu_torch.utils.profiling import stage, sync_for_timing
@@ -55,7 +63,7 @@ _F32_PRECISIONS = (None, "highest", "float32", "f32")
 
 class MicrographPipeline:
     """preprocess (downsample + GMM normalize) -> score -> NMS [-> denoise]
-    for batches of micrographs on one device."""
+    for batches of micrographs, on ``device`` or split over ``mesh``."""
 
     def __init__(
         self,
@@ -76,17 +84,14 @@ class MicrographPipeline:
         skip_errors: bool = False,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "MicrographPipeline over a device mesh is not yet ported to "
-                "topaz_tpu_torch (ROADMAP P14)")
         if precision not in _F32_PRECISIONS:
             raise ValueError(
                 f"precision {precision!r}: the port scores in float32 with TF32 "
                 f"off only; use dtype='bf16' for the fast denoise arm")
         if dtype not in (None, "f32", "bf16", "bfloat16"):
             raise ValueError(f"unsupported dtype {dtype!r}: use f32 or bf16")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.devices[0, 0] if mesh is not None else device)
         self.scale = scale
         self.normalize = normalize
         self.radius = radius
@@ -113,6 +118,7 @@ class MicrographPipeline:
             self.denoiser = load_denoiser(denoise_model, device=self.device)
             if dtype in ("bf16", "bfloat16"):
                 self.denoiser = self.denoiser.to(torch.bfloat16)
+        self._copies: Dict = {}    # the models' copies on the mesh's other rows
         self._fns: Dict = {}       # bucket -> main batch function
         self._prep_fns: Dict = {}  # (raw shape, bucket) -> downsample + embed
 
@@ -147,12 +153,27 @@ class MicrographPipeline:
         else:
             k = min(bh * bw,
                     int((bh + r) * (bw + r) / max(np.pi * (r / 2.0) ** 2, 1)) + 16)
-        picker, denoiser = self.picker, self.denoiser
         normalize, bins = self.normalize, self.bins
+        mesh = self.mesh
+        rows = [list(r) for r in mesh.devices] if mesh is not None else [[self.device]]
+        pickers = replicas(self.picker, [r[0] for r in rows], self._copies)
+        denoisers = (replicas(self.denoiser, [r[0] for r in rows], self._copies)
+                     if self.denoiser is not None else [None] * len(rows))
+        # hybrid data x space: with more devices than micrographs a batch, each
+        # image's rows are split over its data row's devices for scoring, and
+        # the score map is gathered before the NMS rounds (shards below the
+        # receptive field's half score whole)
+        n_space = len(rows[0])
+        scorers = list(pickers)
+        if n_space > 1 and bh % n_space == 0 and bh // n_space >= self.picker.spec.width // 2:
+            halo = [make_halo_dense_scorer(p, Mesh(np.array([r], dtype=object)))
+                    for p, r in zip(pickers, rows)]
+            scorers = [lambda x, h=h: torch.stack([h(xi) for xi in x]) for h in halo]
 
         @torch.inference_mode()
-        def fn(padded: torch.Tensor, valid: torch.Tensor):
+        def run(i: int, padded: torch.Tensor, valid: torch.Tensor):
             # padded (B, bh, bw) after downsampling, valid (B, 2)
+            denoiser = denoisers[i]
             B = padded.shape[0]
             mask = valid_mask((bh, bw), valid)
             maskf = mask.to(padded.dtype)
@@ -175,7 +196,7 @@ class MicrographPipeline:
             else:
                 # extract's inputs are already normalized; padding is zero
                 norms = padded
-            scores = picker(norms)
+            scores = scorers[i](norms)
             neg = torch.tensor(NEG, dtype=scores.dtype, device=scores.device)
             scores = torch.where(mask & ~degen[:, None, None], scores, neg)
             vals, coords, counts = nms_topk_batched(scores, r, t, k)
@@ -199,6 +220,10 @@ class MicrographPipeline:
                 den = torch.where(degen[:, None, None], padded, den)
                 out = out + (den,)
             return out
+
+        def fn(padded: torch.Tensor, valid: torch.Tensor):
+            return split_apply(lambda i, dev, p, v: run(i, p, v), [r[0] for r in rows],
+                               padded, valid, out_device=self.device)
 
         return fn
 

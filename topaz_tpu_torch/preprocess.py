@@ -109,12 +109,14 @@ def normalize_images_batched(
     bucket_step: int = 64,
     skip_errors: bool = False,
     device="cuda",
+    mesh=None,
 ) -> None:
-    """Batched normalization (port of topaz_tpu/preprocess.py:99-289, one
-    device): micrographs are grouped into rounded shape buckets, zero-padded
-    and masked as in pipeline.py, and ``batch_size`` images fit their GMMs
-    at once. Loader threads read and downsample (scipy) the next files
-    meanwhile.
+    """Batched normalization (port of topaz_tpu/preprocess.py:99-289):
+    micrographs are grouped into rounded shape buckets, zero-padded and
+    masked as in pipeline.py, and ``batch_size`` images fit their GMMs at
+    once, on ``device`` or split over the data axis of ``mesh``
+    (``batch_size`` 0: one image a data device). Loader threads read and
+    downsample (scipy) the next files meanwhile.
 
     The fit uses all valid pixels (exact weighted EM; ``bins > 0`` the
     histogram EM); the reference's ``--sample`` subsampling is a CPU-cost
@@ -130,10 +132,14 @@ def normalize_images_batched(
     from topaz_tpu_torch.utils.batching import (fetch_async, iterate_prefetched,
                                                  load_batches, round_bucket, valid_mask)
 
-    device = resolve_device(device)
+    from topaz_tpu_torch.parallel.mesh import split_apply
+
+    device = resolve_device(mesh.data_devices[0] if mesh is not None else device)
+    devices = mesh.data_devices if mesh is not None else [device]
     formats = formats or ["mrc"]
     os.makedirs(dest, exist_ok=True)
-    batch_size = max(1, int(batch_size))
+    if batch_size <= 0:
+        batch_size = mesh.shape["data"] if mesh is not None else 1
 
     def ds_shape(shape):
         if scale > 1:
@@ -195,7 +201,8 @@ def normalize_images_batched(
                 yield (chunk, arr, valid, [l[2] for l in loaded], [l[3] for l in loaded])
 
     for chunk, arr, valid, headers, ext_headers in iterate_prefetched(produce, maxsize=2):
-        out = fit_batch(torch.from_numpy(arr).to(device), torch.from_numpy(valid).to(device))
+        arr_t, valid_t = torch.from_numpy(arr).to(device), torch.from_numpy(valid).to(device)
+        out = split_apply(lambda i, dev, a, v: fit_batch(a, v), devices, arr_t, valid_t)
         normed, *stats = fetch_async(*out)
         for i, path in enumerate(chunk):
             name = os.path.splitext(os.path.basename(path))[0]

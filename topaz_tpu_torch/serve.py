@@ -596,14 +596,13 @@ def make_server(service: TopazService, host: str = "127.0.0.1",
 
 
 def serve_from_args(args) -> int:
-    """CLI adapter (cli/commands/serve.py). ``-d`` takes an index, ``-1``
-    (the current CUDA device) or ``cpu``; ``-2`` raises as not yet ported.
-    The JAX adapter resolves only ``-d >= 0`` and otherwise runs on its
-    default device; the port picks no device silently."""
+    """CLI adapter (cli/commands/serve.py). ``-d`` takes an index, ``cpu``,
+    or ``-1`` or ``-2``, the current CUDA device: the JAX adapter runs
+    ``-d < 0`` on its default device (the service runs on one device)."""
     from topaz_tpu_torch.device import resolve_device
     from topaz_tpu_torch.utils.signals import sigterm_as_interrupt
 
-    device = resolve_device(args.device)
+    device = resolve_device(-1 if args.device == -2 else args.device)
     dtype = "bf16" if args.precision == "bf16" else None
     service = TopazService(
         model=args.model, denoise_model=args.denoise_model, scale=args.scale,

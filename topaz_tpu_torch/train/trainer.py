@@ -15,6 +15,7 @@ decoder's, topaz/methods.py:63-67), not as weight decay.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from dataclasses import dataclass
@@ -27,6 +28,8 @@ from topaz_tpu_torch.models.factory import picker_from_numpy, picker_to_numpy
 from topaz_tpu_torch.models.generative import (
     Generator, generator_from_numpy, generator_to_numpy)
 from topaz_tpu_torch.models.picker import Picker
+from topaz_tpu_torch.parallel.mesh import (Mesh, StatSync, gather_live, replicas, split_apply,
+                                           summed_grads, sync_replicas, world)
 from topaz_tpu_torch.train.augment import augment_crops, augment_crops_3d
 from topaz_tpu_torch.train.methods import MethodState, init_method_state
 
@@ -135,44 +138,103 @@ def init_train_state(model: Picker, pi: Optional[float], lr: float = 2e-4,
                       decoder=decoder)
 
 
-def make_train_step(loss_fn: Callable, l2: float = 0.0, autoencoder: float = 0.0):
+def augmented_crops(state: TrainState, crops: torch.Tensor) -> torch.Tensor:
+    """The step's input: crops of the receptive field as they are; larger
+    ones (a raw-window sampler's) augmented on the device with the state's
+    generator, rotated and flipped when at least sqrt(2) times the
+    receptive field, else only center-cropped."""
+    crop, dims = state.model.spec.width, state.model.spec.dims
+    if crops.shape[1:] == (crop,) * dims:
+        return crops
+    aug = crops.shape[-1] >= int(np.ceil(crop * np.sqrt(2)))
+    augment = augment_crops_3d if dims == 3 else augment_crops
+    return augment(crops, state.generator, crop, rotate=aug, flip=aug)
+
+
+def recon_error_sum(state: TrainState, latent: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The autoencoder's squared error summed over each crop's center and
+    over the batch (``recon_error`` times the batch size)."""
+    crop = state.model.spec.width
+    recon = state.decoder(latent.reshape(latent.shape[0], -1))
+    width = recon.shape[-1]
+    pad = (crop - width) // 2
+    target = x[:, pad:pad + width, pad:pad + width]
+    return torch.sum((target - recon).reshape(x.shape[0], -1) ** 2)
+
+
+def l2_penalty(model: Picker, l2: float) -> torch.Tensor:
+    """0.5 * l2 * sum(w^2) over the picker's parameters."""
+    return 0.5 * l2 * sum(torch.sum(w ** 2) for w in model.parameters())
+
+
+def make_train_step(loss_fn: Callable, l2: float = 0.0, autoencoder: float = 0.0,
+                    mesh: Optional[Mesh] = None, distributed: bool = False):
     """The train step ``step(state, crops, labels) -> metrics``: crops
     (B, S, S), or (B, D, S, S) for a 3D picker, and labels (B,) on the
-    model's device. Crops of the receptive field go in as they are; larger
-    ones (a raw-window sampler's) are augmented on the device first, rotated
-    and flipped when at least sqrt(2) times the receptive field, else only
-    center-cropped. With ``autoencoder > 0`` the state's decoder rebuilds
-    the center of each crop from its latent and the loss adds ``autoencoder``
-    times the batch mean of the squared error summed over a crop
-    (``recon_error``, topaz/methods.py:11-23). The state is updated in place;
-    the metrics stay on the device."""
+    model's device, augmented first (``augmented_crops``). With
+    ``autoencoder > 0`` the state's decoder rebuilds the center of each crop
+    from its latent and the loss adds ``autoencoder`` times the batch mean
+    of the squared error summed over a crop (``recon_error``,
+    topaz/methods.py:11-23). The state is updated in place; the metrics
+    stay on the device.
+
+    The crops are split over the data axis of ``mesh`` (one device, the
+    model's, without one) and, with ``distributed`` while
+    ``torch.distributed`` is initialized, over processes, each feeding its
+    own local batch: one step on the whole (global) batch, as the JAX
+    package's step is over its mesh. Each device forwards its share
+    through its copy of the picker, batch norm takes its statistics over
+    every share (``parallel/mesh.StatSync``), and the scores are gathered
+    so that the objective sees the whole batch, also for the
+    non-decomposable PU objectives. The copies' gradients are summed into
+    the model's, all-reduced across processes (the L2 term enters on rank 0
+    only), and one optimizer step is taken; the copies take the new
+    weights at the next step. Dropout draws from each device's own
+    generator (the state's on the first)."""
+    dist, rank, n_proc = world() if distributed else (None, 0, 1)
+    copies: Dict = {}
+    generators: Dict = {}
 
     def step(state: TrainState, crops: torch.Tensor, labels: torch.Tensor) -> Dict:
         model = state.model
-        crop, dims = model.spec.width, model.spec.dims
-        if crops.shape[1:] == (crop,) * dims:
-            x = crops
-        else:
-            aug = crops.shape[-1] >= int(np.ceil(crop * np.sqrt(2)))
-            augment = augment_crops_3d if dims == 3 else augment_crops
-            x = augment(crops, state.generator, crop, rotate=aug, flip=aug)
-        score, latent = model(x, dense=False, train=True, generator=state.generator,
-                              return_latent=True)
-        loss, state.method_state, metrics = loss_fn(score.reshape(-1), labels,
-                                                    state.method_state)
+        primary = model.classifier_w.device
+        devices = mesh.data_devices if mesh is not None else [primary]
+        reps = replicas(model, devices, copies)
+        sync_replicas(model, reps)
+        x = augmented_crops(state, crops)
+
+        def forward(i, dev, xb):
+            gen = state.generator if i == 0 else generators.setdefault(
+                i, torch.Generator(device=dev).manual_seed(1000003 * i))
+            score, latent = reps[i](xb, dense=False, train=True, generator=gen,
+                                    return_latent=True)
+            return score.reshape(-1), latent
+
+        score, latent = split_apply(forward, devices, x, out_device=primary, sync_stats=True,
+                                    dist=dist)
+        n = x.shape[0] * n_proc
+        if n_proc > 1:
+            score = gather_live(dist, n_proc, rank, score)
+            labels = gather_live(dist, n_proc, rank, labels)
+        loss, state.method_state, metrics = loss_fn(score, labels, state.method_state)
         if autoencoder > 0:
-            recon = state.decoder(latent.reshape(latent.shape[0], -1))
-            width = recon.shape[-1]
-            pad = (crop - width) // 2
-            target = x[:, pad:pad + width, pad:pad + width]
-            recon_error = torch.mean(torch.sum((target - recon).reshape(x.shape[0], -1) ** 2,
-                                               dim=1))
-            loss = loss + recon_error * autoencoder
-            metrics = {**metrics, "recon_error": recon_error}
-        if l2 > 0:
-            loss = loss + 0.5 * l2 * sum(torch.sum(w ** 2) for w in model.parameters())
-        grads = torch.autograd.grad(loss, state.optimizer.params)
-        state.optimizer.step(list(grads))
+            # the decoder's batch norm sees every process's latents
+            with (StatSync(1, dist).party(0) if n_proc > 1 else contextlib.nullcontext()):
+                local = recon_error_sum(state, latent, x)
+            total = local.detach().clone()
+            if n_proc > 1:
+                dist.all_reduce(total)
+            loss = loss + local / n * autoencoder
+            metrics = {**metrics, "recon_error": total / n}
+        if l2 > 0 and rank == 0:
+            loss = loss + l2_penalty(model, l2)
+        grads = summed_grads(loss, state.optimizer.params, reps)
+        if n_proc > 1:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat)
+            grads = [f.view_as(g) for f, g in zip(torch.split(flat, [g.numel() for g in grads]),
+                                                  grads)]
+        state.optimizer.step(grads)
         return {k: v.detach() for k, v in metrics.items()}
 
     return step

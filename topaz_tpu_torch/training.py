@@ -31,7 +31,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from topaz_tpu_torch.device import resolve_device
+from topaz_tpu_torch.parallel.devices import data_mesh_for, resolve_devices
 from topaz_tpu_torch.io import coordinates as file_utils
 from topaz_tpu_torch.io.coordinates import Coordinates
 from topaz_tpu_torch.io.image import load_image
@@ -254,7 +254,15 @@ def train_model(args, output=None):
         # on broadcasting (4, 31, 31, 31) against (4, 31, 31)
         raise ValueError("the autoencoder regularizer (--autoencoder > 0) is 2D only; "
                          "train a 3D picker (--dims 3) without it")
-    device = resolve_device(args.device)
+    devices = resolve_devices(args.device)
+    device = devices[0]
+    # -d -2: data-parallel over every device (and over processes when
+    # TOPAZ_COORDINATOR joined them), the minibatch split over them
+    mesh = None
+    if args.device == -2:
+        mesh = data_mesh_for(devices, args.minibatch_size, warn=True)
+        if mesh is not None:
+            report(f"Data-parallel training over {mesh.shape['data']} devices")
 
     model = make_model_from_args(args, device)
     report("Receptive field:", model.spec.width)
@@ -296,9 +304,15 @@ def train_model(args, output=None):
     train_grouped = group_paths_by_source(args.train_images, train_targets, args.image_ext)
     train_paths = [p for group in train_grouped for p in group]
     seed = getattr(args, "seed", 0)
+    # several processes: each samples its own crops (one seed would repeat
+    # one local batch in every process)
+    sampler_seed = seed
+    if args.device == -2 and torch.distributed.is_available() \
+            and torch.distributed.is_initialized():
+        sampler_seed += 1000003 * torch.distributed.get_rank()
     sampler = CropSampler(train_paths, train_targets, model.spec.width, radius=args.radius,
-                          split=split, rotate=(args.dims == 2 or args.augment3d), seed=seed,
-                          dims=args.dims)
+                          split=split, rotate=(args.dims == 2 or args.augment3d),
+                          seed=sampler_seed, dims=args.dims)
     report(f"Loaded {sampler.num_images} training micrographs with "
            f"~{int(sampler.num_pixels // sampler.mask_size)} labeled particles")
 
@@ -323,7 +337,9 @@ def train_model(args, output=None):
         report(f"Generator: units={args.ngf}, size={generator_width(depth)}")
 
     state = init_train_state(model, pi_adj, lr=args.learning_rate, seed=seed, decoder=decoder)
-    step_fn = make_train_step(loss_fn, l2=args.l2, autoencoder=args.autoencoder)
+    # across processes only at -d -2, as the JAX package: at -d N each process trains alone
+    step_fn = make_train_step(loss_fn, l2=args.l2, autoencoder=args.autoencoder, mesh=mesh,
+                              distributed=args.device == -2)
 
     # --resume: the whole training state and the sampler's stream, so the
     # run continues bit-exactly, mid-epoch included (the reference's resume
@@ -428,7 +444,7 @@ def train_model(args, output=None):
 def train_from_args(args):
     """CLI entry (topaz/commands/train.py main contract)."""
     if args.describe:
-        print(make_model_from_args(args, resolve_device(args.device)).spec)
+        print(make_model_from_args(args, resolve_devices(args.device)[0]).spec)
         sys.exit()
 
     if args.k_fold > 1 and args.test_images is None:

@@ -51,17 +51,17 @@ def warmup(model: str = "resnet16_u32", denoise_model: Optional[str] = None, sca
            radius: int = 14, threshold: float = -6.0,
            shapes: Sequence[Tuple[int, int]] = ((4096, 4096),),
            batch_sizes: Sequence[int] = (1, 8), bins: int = 0, precision=None, dtype=None,
-           device="cuda") -> int:
+           device="cuda", mesh=None) -> int:
     """Build the CUDA kernels (on a CUDA device), then run each shape x
-    batch size through the pipeline once, and the whole-image denoise once
-    a shape. The JAX package's keywords, but ``device`` in place of
-    ``mesh``. Returns the number of programs run."""
+    batch size through the pipeline once (split over ``mesh`` when given),
+    and the whole-image denoise once a shape. The JAX package's keywords,
+    and ``device``. Returns the number of programs run."""
     from topaz_tpu_torch.denoise import Denoise
     from topaz_tpu_torch.device import resolve_device
     from topaz_tpu_torch.io import mrc
     from topaz_tpu_torch.pipeline import MicrographPipeline
 
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.devices[0, 0] if mesh is not None else device)
     t_all = time.time()
     if dev.type == "cuda":
         from topaz_tpu_torch._build import build_libraries
@@ -73,7 +73,8 @@ def warmup(model: str = "resnet16_u32", denoise_model: Optional[str] = None, sca
     # pipeline's picking-scale denoise arm included when a denoiser is given
     pipe = MicrographPipeline(model=model, denoise_model=denoise_model, scale=scale,
                               radius=radius, threshold=threshold, normalize=True,
-                              precision=precision, bins=bins, dtype=dtype, device=dev)
+                              precision=precision, bins=bins, dtype=dtype, device=dev,
+                              mesh=mesh)
     denoiser = None
     if denoise_model is not None:
         denoiser = Denoise(denoise_model, dtype=dtype, device=dev)
@@ -105,13 +106,16 @@ def warmup(model: str = "resnet16_u32", denoise_model: Optional[str] = None, sca
 
 
 def warmup_from_args(args) -> int:
-    """CLI adapter (cli/commands/warmup.py)."""
-    from topaz_tpu_torch.device import resolve_device
+    """CLI adapter (cli/commands/warmup.py); ``-d -2`` warms the pipeline
+    split over every CUDA device, for the largest batch size."""
+    from topaz_tpu_torch.parallel.devices import hybrid_mesh_for, resolve_devices
 
-    device = resolve_device(args.device)
+    devices = resolve_devices(args.device)
     batch_sizes = sorted({int(b) for b in args.batch_sizes.split(",") if b})
+    mesh = hybrid_mesh_for(devices, max(batch_sizes), warn=True)
     dtype = "bf16" if args.precision == "bf16" else None
     warmup(model=args.model, denoise_model=args.denoise_model, scale=args.scale,
            radius=args.radius, threshold=args.threshold, shapes=parse_shapes(args.shapes),
-           batch_sizes=batch_sizes, bins=args.bins, dtype=dtype, device=device)
+           batch_sizes=batch_sizes, bins=args.bins, dtype=dtype, device=devices[0],
+           mesh=mesh)
     return 0

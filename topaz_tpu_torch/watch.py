@@ -155,11 +155,12 @@ def watch_directory(
     out_format: str = "coord",
     suffix: str = "",
     device="cuda",
+    mesh=None,
     _poll_hook=None,
 ) -> int:
     """Watch ``input_dir`` and stream new micrographs through the pipeline
-    on ``device``. The JAX package's keywords, but ``device`` in place of
-    ``mesh`` (one device; ``-d -2`` is not ported).
+    on ``device``, or split over ``mesh`` (parallel/mesh.py). The JAX
+    package's keywords, and ``device``.
 
     Picks are appended to ``output`` (``image_name\\tx_coord\\ty_coord\\tscore``,
     one header when the file is created) with coordinates in RAW pixels
@@ -191,7 +192,7 @@ def watch_directory(
     pipe = MicrographPipeline(
         model=model, denoise_model=denoise_model, scale=scale, radius=radius,
         threshold=threshold, normalize=True, precision=precision, bins=bins,
-        dtype=dtype, skip_errors=skip_errors, device=device)
+        dtype=dtype, skip_errors=skip_errors, device=device, mesh=mesh)
 
     if per_micrograph:
         out_dir = output
@@ -299,10 +300,18 @@ def watch_directory(
 
 def watch_from_args(args) -> int:
     """CLI adapter (cli/commands/watch.py). ``-d`` takes an index, ``-1``
-    (the current CUDA device) or ``cpu``; ``-2`` raises as not yet ported."""
-    from topaz_tpu_torch.device import resolve_device
+    (the current CUDA device), ``cpu``, or ``-2``: the batches split over
+    every CUDA device (``hybrid_mesh_for``)."""
+    from topaz_tpu_torch.parallel.devices import hybrid_mesh_for, resolve_devices
 
-    device = resolve_device(args.device)
+    devices = resolve_devices(args.device)
+    device, mesh = devices[0], None
+    if args.device == -2:
+        mesh = hybrid_mesh_for(devices, args.batch_size, warn=True)
+        if mesh is not None:
+            nd, ns = mesh.shape["data"], mesh.shape["space"]
+            report(f"watch: pipeline sharded over {nd * ns} devices"
+                   + (f" ({nd} batch x {ns} spatial)" if ns > 1 else ""))
     # bf16 runs the pipeline's denoise arm in bfloat16; scores and NMS stay
     # float32, so picks keep their parity
     dtype = "bf16" if args.precision == "bf16" else None
@@ -329,4 +338,5 @@ def watch_from_args(args) -> int:
         out_format=args.out_format or "coord",
         suffix=args.suffix or "",
         device=device,
+        mesh=mesh,
     )
