@@ -6,14 +6,15 @@
 Phases, in order; any failure exits non-zero before a result is printed:
 
 1. Require a CUDA device; print the card's name and power limit.
-2. Build every CUDA kernel of the port from csrc/ (nvcc, sm_90a).
-3. Hold each kernel bit-equal against its plain PyTorch version on the card
-   (disk_max: random f32 and int32 maps and the maps the NMS rounds feed
-   it, a score map ~90% -inf, an index map with INT32_MIN off the
-   candidates and a 0/1 peak map; (512, 512) and (3, 300, 200) at r = 0, 1,
-   3, 7, 14, 31, 32, 33, 60, 85, 86 (the last radius of the window kernel
-   at these widths and the first of the row kernel), 96, 97, 100, 150, and
-   (1, 4096, 4096) at r = 0, 3, 14, 33, 85, 86, 100, 150; the
+2. Build every CUDA kernel of the port from csrc/ (nvcc, sm_90a, one
+   process a source, all started together): disk_max.cu and gmm_em.cu.
+3. Hold each kernel against its plain PyTorch version on the card. The
+   disk max bit-equal (random f32 and int32 maps and the maps the NMS
+   rounds feed it, a score map ~90% -inf, an index map with INT32_MIN off
+   the candidates and a 0/1 peak map; (512, 512) and (3, 300, 200) at r =
+   0, 1, 3, 7, 14, 31, 32, 33, 60, 85, 86 (the last radius of the window
+   kernel at these widths and the first of the row kernel), 96, 97, 100,
+   150, and (1, 4096, 4096) at r = 0, 3, 14, 33, 85, 86, 100, 150; the
    pipeline's batched shapes (8, 512, 512) and (8, 768, 512) at r = 3 and
    14; r >= H or W at (3, 40, 50) r = 60, (70, 33) r = 100, (40, 50) r =
    120; the odd (5, 257, 129) at r = 1, 14, 33, 150), and time kernel and
@@ -21,11 +22,22 @@ Phases, in order; any failure exits non-zero before a result is printed:
    at r = 14, and at (512, 512) over r = 5, 14, 30, 50, 75, 96, 100 (the
    ``by_radius`` sweep), with CUDA events (device time from a CUDA graph
    of many calls, and the eager time a call), beside the least time the
-   card could take.
+   card could take. The GMM's EM (``check_gmm_em``): the kernel against
+   the plain version with float64 sums (its twin: the same float32 terms,
+   summed as the kernel sums them) on one image and a batch of 8 at N =
+   4096 and 262144 pixels, unweighted, with 0/1 weights (padding) and with
+   histogram counts, a fit cut at num_iters = 3 and a padded batch with a
+   dead frame; mu, std, pi and logp within ``GMM_EM_RTOL`` and every lane
+   at the twin's step (one apart only at a float32 tie of logp - logp_cur
+   with tol), each case's steps, the kernel's, the twin's and the plain
+   version's ms (CUDA events) and the bound printed, and the plain version
+   as the CPU path runs it (float32 sums) beside them; then ``gmm_fit``
+   under ``torch.cuda.set_sync_debug_mode("error")``: one launch, no host
+   sync.
 4. Drive the main path through the CLI a user calls: a 4096^2 synthetic
    micrograph through ``preprocess -s 8`` and
    ``extract -m resnet8_u32 -r 14 -t -6`` on the card (launch counts read
-   from that run), then again warm, then on the CPU. Picks must be
+   from that run: one EM launch), then again warm, then on the CPU. Picks must be
    non-empty and identical between card and CPU (a differing pick only where
    the two scores that decided it lie within 1e-5), matched scores within
    1e-3 and the normalized micrographs within 1e-3 (f32 FFT, EM and
@@ -48,15 +60,20 @@ Phases, in order; any failure exits non-zero before a result is printed:
    ``unet`` denoise arm, ``scale=8``, ``radius=14``, ``threshold=-6``,
    ``batch_size=8``, host prep (``host_downsample``, 2 loader threads) cold
    and warm, then device prep. Prints micrographs a second, the programs'
-   census (2 main buckets), disk_max launches, picks a file and stage times
-   a batch. Every file comes back with picks, scores non-increasing and a
+   census (2 main buckets), the disk max's and the EM kernel's launches of
+   the cold run (one EM launch a batch), picks a file and stage times a
+   batch. Every file comes back with picks, scores non-increasing and a
    finite denoised image of the downsampled shape; device and host prep
    agree under the near-tie rule. One file a geometry: the pipeline against
    the port's per-image path on the card (downsample, ``normalize``, score,
    ``non_maximum_suppression``) under the near-tie rule; the pipeline on
    the card against the CPU at ``batch_size=2``, near-tie rule and denoised
    pixels within 1e-3 x std. Pipeline picks are held with scores and gaps
-   within 1e-3 x max(1, |score|) (``PIPELINE_TOL``, below). Then the
+   within 1e-3 x max(1, |score|) (``PIPELINE_TOL``, below). The EM kernel
+   against its twin on the pipeline's real inputs
+   (``check_gmm_em_pipeline``): 8 micrographs of each main bucket as the
+   pipeline loads them, the 512 x 512 bucket's 65536-bin histogram fit and
+   one 4096^2 micrograph alone, as ``preprocess`` fits it. Then the
    batched CLI: ``normalize -s 8 --batch-size 8`` and
    ``extract -m resnet8_u32 -r 14 -t -6 --batch-size 8`` on the 24 files,
    three of them held against the ``--batch-size 1`` CLI (normalized pixels
@@ -310,6 +327,22 @@ DISK_MAX_SWEEP = (5, 14, 30, 50, 75, 96, 100)
 UNET_HALO_TOL = 0.0126
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+# the EM's bound: an H100 SXM's SMs, and the 32-bit exp2/log2 results a
+# clock an SM of compute capability 9.0 (the CUDA C++ Programming Guide's
+# throughput table); a posterior evaluation of the EM (csrc/gmm_em.cu) is
+# five transcendental functions (two exp and a log for Z, two exp for p0
+# and p1) and ~29 other float32 operations
+SM_COUNT, MUFU_PER_CLOCK_SM = 132, 16
+EM_MUFU_PER_EVAL, EM_F32_PER_EVAL = 5, 29
+# the EM's tol (gmm_fit's default), and the kernel against its plain twin:
+# the same float32 terms summed in float64 in two orders round alike but
+# where a sum lies within float64 rounding of a float32 rounding boundary,
+# so mu, std, pi and logp are held to 1e-5 relative, the port's contract
+# with the JAX package
+EM_TOL, GMM_EM_RTOL = 1e-3, 1e-5
+# pixels an image of check_gmm_em's synthetic cases: a small image, and one
+# of the pipeline's 512 x 512 bucket
+EM_SIZES = (4096, 262144)
 
 
 def fail(msg: str) -> None:
@@ -471,6 +504,299 @@ def check_disk_max():
     return err, single, batched, by_radius
 
 
+# the EM kernel's launches on each path, read in the same windows as the
+# disk max's (reset_launches / read_launches)
+GMM_LAUNCHES = {}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0, just before a path runs."""
+    from topaz_tpu_torch.ops import disk_max as dm, gmm
+
+    dm.launches = 0
+    gmm.launches = 0
+
+
+def read_launches(path: str) -> int:
+    """Every kernel's launches since ``reset_launches``, just after a path
+    ran: the EM kernel's go to GMM_LAUNCHES[path], the disk max's are
+    returned."""
+    from topaz_tpu_torch.ops import disk_max as dm, gmm
+
+    GMM_LAUNCHES[path] = gmm.launches
+    return dm.launches
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def em_bound(xb, wb, steps):
+    """Least time of one EM fit on the card, ms, and what bounds it: the
+    larger of reading x and w once (the outputs are B x L x 7 words) and
+    of the posterior evaluations this run's lanes needed, one a pixel of
+    nonzero weight and lane at the init and at each step they took, each
+    EM_MUFU_PER_EVAL transcendental functions at the MUFU rate and
+    EM_F32_PER_EVAL other float32 operations at the f32 rate."""
+    import torch
+
+    B, N = xb.shape
+    L = steps.shape[-1]
+    nbytes = xb.numel() * 4 * (1 if wb is None else 2) + B * L * 7 * 4
+    pixels = (torch.full((B,), N, device=xb.device) if wb is None
+              else torch.count_nonzero(wb, dim=-1))
+    evals = float(torch.sum(pixels[:, None].double() * (steps.double() + 1)))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    mufu_per_s = SM_COUNT * MUFU_PER_CLOCK_SM * max_sm_clock_hz()
+    t_ops = max(evals * EM_MUFU_PER_EVAL / mufu_per_s, evals * EM_F32_PER_EVAL / F32_OPS_PER_S)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def em_compare(kern, ksteps, twin, tsteps, history):
+    """The kernel's fit against its plain twin's (``_gmm_fit_plain`` with
+    float64 sums) on the same inputs, lane by lane. A lane stops at the
+    twin's step, or one step apart only at a tie: where the twin's logp -
+    logp_cur at the earlier of the two steps lies within one float32 ulp of
+    that step's logp of tol; a tie lane's values are then held to the
+    twin's state after the kernel's step. Returns the largest relative
+    differences of mu (both components), std, pi and logp, the largest
+    absolute difference of any finite output, the tie lanes and the lanes
+    that break the rule, as (image, lane, kernel steps, twin steps)."""
+    import numpy as np
+
+    names = ("logp", "mu0", "var", "mu1", "var", "pi")
+    k = {n: v.double().cpu().numpy() for n, v in zip(names, kern)}
+    t = {n: v.double().cpu().numpy() for n, v in zip(names, twin)}
+    ks, ts = ksteps.cpu().numpy(), tsteps.cpu().numpy()
+    hist = [{key: v.cpu().numpy() for key, v in h.items()} for h in history]
+    ties, bad = [], []
+    for b, l in zip(*np.nonzero(ks != ts)):
+        lane = (int(b), int(l), int(ks[b, l]), int(ts[b, l]))
+        m = min(ks[b, l], ts[b, l])
+        h = hist[m - 1] if 1 <= m <= len(hist) else None
+        if abs(int(ks[b, l]) - int(ts[b, l])) != 1 or h is None or not h["running"][b, l]:
+            bad.append(lane)
+            continue
+        logp = np.float32(h["logp"][b, l])
+        if abs(np.float32(h["gain"][b, l]) - np.float32(EM_TOL)) > np.spacing(abs(logp)):
+            bad.append(lane)
+            continue
+        ties.append(lane)
+        # the twin's state after the kernel's step, where the loop ran it
+        after = hist[ks[b, l] - 1] if ks[b, l] <= len(hist) else None
+        if after is None:
+            bad.append(lane)
+            continue
+        for n in ("logp", "mu0", "var", "mu1", "pi"):
+            t[n][b, l] = after[n][b, l]
+
+    def rel(a, b):
+        with np.errstate(divide="ignore", invalid="ignore"):
+            d = np.abs(a - b) / np.abs(b)
+        d = np.where((a == b) | (np.isnan(a) & np.isnan(b)), 0.0, d)
+        return float(np.max(np.where(np.isnan(d), np.inf, d)))
+
+    errs = {"mu": max(rel(k["mu0"], t["mu0"]), rel(k["mu1"], t["mu1"])),
+            "std": rel(np.sqrt(k["var"]), np.sqrt(t["var"])),
+            "pi": rel(k["pi"], t["pi"]), "logp": rel(k["logp"], t["logp"])}
+    both = [(k[n], t[n]) for n in ("logp", "mu0", "var", "mu1", "pi")]
+    max_abs = max(float(np.max(np.abs(a - b), initial=0.0, where=np.isfinite(a - b)))
+                  for a, b in both)
+    return errs, max_abs, ties, bad
+
+
+def em_inputs(fit, *args, **kw):
+    """The lane inputs a call of ``fit`` (``norm_fit`` or ``norm_fit_hist``)
+    hands the EM: (xb, wb, n, pi, split) as the plain version and the kernel
+    take them, and the EM's alpha, beta, scale and num_iters. The call runs
+    as it would (one kernel launch on the card)."""
+    from topaz_tpu_torch.ops import gmm
+
+    seen = {}
+    real = gmm.gmm_fit
+
+    def spy(x, pi, split, alpha=0.5, beta=0.5, scale=1.0, tol=EM_TOL, num_iters=100,
+            w=None, n=None):
+        seen["inputs"] = gmm._fit_inputs(x, pi, split, w, n)
+        seen["opts"] = (alpha, beta, scale, num_iters)
+        return real(x, pi, split, alpha=alpha, beta=beta, scale=scale, tol=tol,
+                    num_iters=num_iters, w=w, n=n)
+
+    gmm.gmm_fit = spy
+    try:
+        fit(*args, **kw)
+    finally:
+        gmm.gmm_fit = real
+    return seen["inputs"], seen["opts"]
+
+
+def em_case(tag, inputs, opts):
+    """One EM case on the card: the kernel against its plain twin (the rule
+    of ``em_compare``, mu/std/pi/logp within GMM_EM_RTOL), and the plain
+    version as the CPU path runs it (float32 sums) beside them, with the
+    kernel's, the twin's and the plain version's ms and the bound. Fails on
+    any difference the rule does not allow."""
+    import torch
+
+    from topaz_tpu_torch.ops import gmm
+
+    xb, wb, n, pi, split = inputs
+    alpha, beta, scale, num_iters = opts
+    args = (xb, wb, n, pi, split, alpha, beta, scale, EM_TOL, num_iters)
+    kern, ksteps = gmm._gmm_fit_kernel(*args)
+    torch.cuda.synchronize()
+    history = []
+    twin, tsteps = gmm._gmm_fit_plain(*args, acc=torch.float64, history=history)
+    history = [dict(zip(("gain", "logp", "running", "mu0", "var", "mu1", "pi"), h))
+               for h in history]
+    plain, psteps = gmm._gmm_fit_plain(*args)
+    errs, max_abs, ties, bad = em_compare(kern, ksteps, twin, tsteps, history)
+    f32_errs, _, _, _ = em_compare(kern, ksteps, plain, psteps, [])
+    weights = ("none" if wb is None else "0/1" if bool(((wb == 0) | (wb == 1)).all())
+               else "counts")
+    row = {"tag": tag, "shape": [xb.shape[0], xb.shape[1], pi.shape[-1]], "weights": weights,
+           "num_iters": num_iters, "errs": errs, "max_abs_err": max_abs, "ties": ties,
+           "steps_kernel": ksteps.cpu().tolist(), "steps_twin": tsteps.cpu().tolist(),
+           "plain_f32_errs": f32_errs,
+           "plain_f32_steps_differ": int((psteps != ksteps).sum())}
+    row["ms"] = cuda_ms(lambda: gmm._gmm_fit_kernel(*args), 5, warmup=1)
+    row["twin_ms"] = cuda_ms(lambda: gmm._gmm_fit_plain(*args, acc=torch.float64), 1, warmup=0)
+    row["plain_ms"] = cuda_ms(lambda: gmm._gmm_fit_plain(*args), 1, warmup=0)
+    row["bound_ms"], row["bound_by"] = em_bound(xb, wb, ksteps)
+    print(f"# gmm_em {tag} {tuple(row['shape'])} w={row['weights']} num_iters={num_iters}: "
+          f"max rel diff to the twin " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; steps kernel {row['steps_kernel']}, twin {row['steps_twin']}, ties {ties}"
+          + f"; plain (f32 sums): {row['plain_f32_steps_differ']} lanes stop elsewhere, "
+          + ", ".join(f"{k} {v:.3e}" for k, v in f32_errs.items())
+          + f"; kernel {row['ms']:.3f} ms, twin {row['twin_ms']:.3f} ms, plain "
+          f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    if bad or max(errs.values()) > GMM_EM_RTOL:
+        fail(f"gmm_em {tag}: kernel differs from its plain twin: {errs}, lanes {bad}")
+    return row
+
+
+def em_mixture(rng, B, N, valid=None, dead=None, device="cuda"):
+    """(B, N) float32 pixels of two Gaussians (means 1 and 3, std 0.6, a
+    high-intensity share drawn per image) on ``device``; with ``valid``, 0/1
+    weights keeping each image's first valid[b] pixels and junk (50) in
+    the rest, else None; image ``dead`` constant (2.5) on its valid
+    pixels."""
+    import numpy as np
+    import torch
+
+    share = rng.uniform(0.1, 0.6, (B, 1))
+    x = np.where(rng.random((B, N)) < share, rng.normal(3.0, 0.6, (B, N)),
+                 rng.normal(1.0, 0.6, (B, N))).astype(np.float32)
+    w = None
+    if valid is not None:
+        w = (np.arange(N)[None] < np.asarray(valid)[:, None]).astype(np.float32)
+        x = np.where(w > 0, x, np.float32(50.0))
+    if dead is not None:
+        x[dead] = 2.5 if w is None else np.where(w[dead] > 0, 2.5, 50.0)
+    return tuple(None if a is None else torch.from_numpy(a).to(device) for a in (x, w))
+
+
+def check_gmm_em():
+    """The EM kernel against its plain twin on the card: one image and a
+    batch of 8 at each of EM_SIZES pixels, unweighted, with 0/1 weights (a
+    padded bucket) and with histogram counts (``norm_fit_hist``'s bins);
+    a fit cut at num_iters = 3 (every lane runs to it); a padded batch with
+    a dead frame. Then ``gmm_fit`` under torch.cuda.set_sync_debug_mode
+    ("error"): one launch and no host sync in the fit. Returns the rows."""
+    import numpy as np
+    import torch
+
+    from topaz_tpu_torch.ops import gmm
+
+    rng = np.random.default_rng(SEED + 15)
+    rows = []
+    for B in (1, 8):
+        for N in EM_SIZES:
+            x, _ = em_mixture(rng, B, N)
+            rows.append(em_case("unweighted", *em_inputs(gmm.norm_fit, x)))
+            valid = rng.integers(N // 2, N + 1, B)
+            x, w = em_mixture(rng, B, N, valid)
+            rows.append(em_case("0/1 weights", *em_inputs(gmm.norm_fit, x, w=w)))
+            x, _ = em_mixture(rng, B, 4 * N)
+            rows.append(em_case("counts", *em_inputs(gmm.norm_fit_hist, x, bins=N)))
+    N = EM_SIZES[0]
+    x, w = em_mixture(rng, 8, N, rng.integers(N // 2, N + 1, 8))
+    rows.append(em_case("num_iters", *em_inputs(gmm.norm_fit, x, w=w, num_iters=3)))
+    if any(s != 3 for lane in rows[-1]["steps_kernel"] for s in lane):
+        fail(f"gmm_em num_iters=3: lanes stopped at {rows[-1]['steps_kernel']}")
+    x, w = em_mixture(rng, 8, N, rng.integers(N // 2, N + 1, 8), dead=3)
+    rows.append(em_case("dead frame", *em_inputs(gmm.norm_fit, x, w=w)))
+    if rows[-1]["steps_kernel"][3] != [100] * 11:
+        fail(f"gmm_em dead frame: its lanes stopped at {rows[-1]['steps_kernel'][3]}")
+
+    # the fit as the pipeline calls it, with sync debugging set to raise
+    N = EM_SIZES[-1]
+    x, w = em_mixture(rng, 8, N, rng.integers(N // 2, N + 1, 8))
+    (xb, wb, n, pi, split), (alpha, beta, scale, num_iters) = em_inputs(gmm.norm_fit, x, w=w)
+    torch.cuda.synchronize()
+    before = gmm.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = gmm.gmm_fit(xb, pi, split, alpha=alpha, beta=beta, scale=scale,
+                          num_iters=num_iters, w=wb, n=n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if gmm.launches - before != 1 or not all(torch.isfinite(v).all() for v in out):
+        fail(f"gmm_fit: {gmm.launches - before} launches, finite "
+             f"{[bool(torch.isfinite(v).all()) for v in out]}")
+    print("# gmm_fit on the card under set_sync_debug_mode('error'): one launch, no host sync")
+    return rows
+
+
+def check_gmm_em_pipeline(paths):
+    """The EM kernel against its plain twin on the pipeline's real inputs:
+    a batch of 8 of each main bucket as the pipeline loads it (host prep),
+    fit as its batch function fits it (masked ``norm_fit``), the 512 x 512
+    bucket's histogram fit (``norm_fit_hist``, 65536 bins, as the pipeline
+    runs with ``bins``) and the first 4096^2 micrograph alone, unmasked, as
+    ``preprocess`` fits it. Returns {name: row}."""
+    import numpy as np
+    import torch
+
+    from topaz_tpu_torch.ops import gmm
+    from topaz_tpu_torch.pipeline import MicrographPipeline, _image_shape
+    from topaz_tpu_torch.utils.batching import valid_mask
+
+    pipe = MicrographPipeline(model="resnet8_u32", scale=8, radius=RADIUS,
+                              threshold=THRESHOLD, host_downsample=True, num_workers=2)
+    by_bucket = {}
+    for p in paths:
+        ds = pipe._ds_shape(_image_shape(p))
+        by_bucket.setdefault(pipe._bucket_for(ds), []).append((p, ds))
+    rows = {}
+    for bucket, items in sorted(by_bucket.items()):
+        if len(items) < BATCH:
+            continue
+        items = items[:BATCH]
+        x = torch.from_numpy(np.stack([pipe._load_one(p, bucket) for p, _ in items])).cuda()
+        valid = torch.tensor([ds for _, ds in items]).cuda()
+        w = valid_mask(bucket, valid).float().reshape(BATCH, -1)
+        x = x.reshape(BATCH, -1)
+        name = f"bucket_{bucket[0]}x{bucket[1]}"
+        rows[name] = em_case(f"pipeline {name}", *em_inputs(gmm.norm_fit, x, w=w))
+        if bucket == (SIZE // 8, SIZE // 8):
+            rows["hist"] = em_case(f"pipeline {name}, 65536 bins",
+                                   *em_inputs(gmm.norm_fit_hist, x, bins=65536, w=w))
+            path = next(p for p, ds in by_bucket[bucket] if ds == bucket)
+            one = torch.from_numpy(pipe._load_one(path, bucket)).cuda().reshape(1, -1)
+            rows["single"] = em_case("preprocess, one micrograph", *em_inputs(gmm.norm_fit, one))
+    if len(rows) != 4 or "hist" not in rows or "single" not in rows:
+        fail(f"gmm_em on the pipeline's buckets: got {sorted(rows)}")
+    return rows
+
+
 def read_picks(path):
     picks = {}
     with open(path) as f:
@@ -512,7 +838,6 @@ def run_slice(workdir: str):
 
     from topaz_tpu_torch.cli.main import main as cli
     from topaz_tpu_torch.io import mrc
-    from topaz_tpu_torch.ops import disk_max as dm
     from topaz_tpu_torch.ops.nms import _greedy_rounds, disk_max as plain
     from topaz_tpu_torch.extract import score_images
     from topaz_tpu_torch.utils.synthetic import make_ctf_micrograph
@@ -535,9 +860,9 @@ def run_slice(workdir: str):
         print(f"# {tag}: preprocess {t1 - t0:.3f} s, extract {t2 - t1:.3f} s")
         return os.path.join(proc, "raw.mrc"), picks
 
-    dm.launches = 0
+    reset_launches()
     proc_card, picks_card = stages("0", "card_cold")
-    launches = dm.launches
+    launches = read_launches("extract")
     stages("0", "card_warm")
     proc_cpu, picks_cpu = stages("cpu", "cpu")
 
@@ -551,10 +876,13 @@ def run_slice(workdir: str):
     _, score = next(score_images("resnet8_u32", [proc_card], device="cuda"))
     _greedy_rounds(score.contiguous(), THRESHOLD, counted)
     rounds = calls[0] // 3
-    print(f"# greedy rounds {rounds}, disk_max launches on the card run {launches}")
+    print(f"# greedy rounds {rounds}, disk_max launches on the card run {launches}, "
+          f"gmm_em {GMM_LAUNCHES['extract']}")
     if rounds < 1 or launches < 3 * rounds:
         fail(f"disk_max launched {launches} times for {rounds} greedy rounds "
              f"(expected at least {3 * rounds})")
+    if GMM_LAUNCHES["extract"] != 1:
+        fail(f"gmm_em launched {GMM_LAUNCHES['extract']} times for one micrograph's fit")
 
     a, b = mrc.read(proc_card)[0], mrc.read(proc_cpu)[0]
     img_err = float(np.abs(a.astype(np.float64) - b).max())
@@ -656,7 +984,6 @@ def run_denoise(workdir: str):
 
     from topaz_tpu_torch.cli.main import main as cli
     from topaz_tpu_torch.io import mrc
-    from topaz_tpu_torch.ops import disk_max as dm
 
     raw = os.path.join(workdir, "raw.mrc")
     x = mrc.read(raw)[0]
@@ -671,15 +998,16 @@ def run_denoise(workdir: str):
               f"{time.perf_counter() - t0:.3f} s")
         return mrc.read(os.path.join(out, "raw.mrc"))[0]
 
-    dm.launches = 0
+    reset_launches()
     for tag, flags in (("whole", ["-s", "0"]), ("patched", [])):
         for run in ("cold", "warm"):
             y = denoise("0", f"card_{tag}_{run}", flags)
             if y.shape != x.shape or not np.isfinite(y).all() or np.array_equal(y, x):
                 fail(f"denoise {tag} {run}: shape {y.shape}, finite "
                      f"{np.isfinite(y).all()}, equal to the input {np.array_equal(y, x)}")
-    print(f"# denoise path: disk_max launches {dm.launches} (the path has no kernel "
-          f"of the port's own)")
+    n = read_launches("denoise")
+    print(f"# denoise path: disk_max launches {n}, gmm_em {GMM_LAUNCHES['denoise']} (the "
+          f"path has no kernel of the port's own)")
     time_unet_forward()
     for factor, flags in ((8, ["-s", "0"]), (4, ["-s", "384", "-p", "128"])):
         side = SIZE // factor
@@ -749,7 +1077,6 @@ def run_pipeline(workdir: str):
     launches of the cold run and the files."""
     import numpy as np
 
-    from topaz_tpu_torch.ops import disk_max as dm
     from topaz_tpu_torch.pipeline import MicrographPipeline, _image_shape
 
     t0 = time.perf_counter()
@@ -762,9 +1089,9 @@ def run_pipeline(workdir: str):
     os.environ["TOPAZ_TIMINGS"] = "1"  # stage times a batch include the device's
     try:
         host = MicrographPipeline(host_downsample=True, **kw)
-        dm.launches = 0
+        reset_launches()
         cold = run_pipeline_pass(host, paths, "host prep, cold")
-        launches = dm.launches
+        launches = read_launches("pipeline")
         warm = run_pipeline_pass(host, paths, "host prep, warm")
         device = MicrographPipeline(host_downsample=False, **kw)
         run_pipeline_pass(device, paths, "device prep, cold")
@@ -772,10 +1099,13 @@ def run_pipeline(workdir: str):
     finally:
         del os.environ["TOPAZ_TIMINGS"]
     n_batches = sum(-(-FILES_PER_GEOMETRY * n // BATCH) for n in (2, 1))
-    print(f"# pipeline: disk_max launches in the cold run {launches} "
-          f"({n_batches} batches of {BATCH})")
+    print(f"# pipeline: disk_max launches in the cold run {launches}, gmm_em "
+          f"{GMM_LAUNCHES['pipeline']} ({n_batches} batches of {BATCH})")
     if launches < 3 * n_batches or launches % 3:
         fail(f"pipeline: disk_max launched {launches} times for {n_batches} batches")
+    if GMM_LAUNCHES["pipeline"] != n_batches:
+        fail(f"pipeline: gmm_em launched {GMM_LAUNCHES['pipeline']} times for "
+             f"{n_batches} batches (one fit a batch)")
     if host.num_programs != {"main": 2, "prep": 0} or device.num_programs["main"] != 2:
         fail(f"pipeline programs: host {host.num_programs}, device {device.num_programs}")
 
@@ -1077,7 +1407,6 @@ def run_training(workdir: str, files, epoch_size: int = 100, device: str = "0"):
     from topaz_tpu_torch.cli.main import main as cli
     from topaz_tpu_torch.io.coordinates import read_coordinates
     from topaz_tpu_torch.models.factory import load_picker
-    from topaz_tpu_torch.ops import disk_max as dm
     from topaz_tpu_torch.training import evaluate_model
     from topaz_tpu_torch.utils import profiling
 
@@ -1096,11 +1425,11 @@ def run_training(workdir: str, files, epoch_size: int = 100, device: str = "0"):
             "-n", str(TRAIN_PARTICLES), "-r", "3", "--num-epochs", "2",
             "--epoch-size", str(epoch_size), "-d", device]
     profiling.reset()
-    dm.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     cli(argv + ["--save-prefix", prefix, "-o", log])
     wall = time.perf_counter() - t0
-    train_launches = dm.launches
+    train_launches = read_launches("train")
     epochs = profiling.samples("train_epoch")
     evals = profiling.samples("train_evaluate")
     print(f"# train: 2 epochs of {epoch_size} steps, batch 256, in {wall:.3f} s; epoch wall "
@@ -1125,11 +1454,11 @@ def run_training(workdir: str, files, epoch_size: int = 100, device: str = "0"):
         fail(f"train: checkpoint {ckpt} holds {model.spec}")
 
     picks = os.path.join(workdir, "train", "picks.txt")
-    dm.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     cli(["extract", "-m", ckpt, "-r", str(RADIUS), "-t", str(THRESHOLD), "-o", picks,
          "-d", device] + test_paths)
-    extract_launches = dm.launches
+    extract_launches = read_launches("train_extract")
     table = read_table(picks)
     counts = [len(table.get(os.path.splitext(os.path.basename(p))[0], {})) for p in test_paths]
     print(f"# train_extract: extract -m {os.path.basename(ckpt)} -r {RADIUS} -t {THRESHOLD} on "
@@ -1376,7 +1705,6 @@ def run_denoise_train(workdir: str):
 
     from topaz_tpu_torch.denoise import (Denoise, make_denoise_optimizer, make_denoise_step)
     from topaz_tpu_torch.io import mrc
-    from topaz_tpu_torch.ops import disk_max as dm
     from topaz_tpu_torch.train.denoise_data import make_paired_images_samplers
     from topaz_tpu_torch.utils import profiling
 
@@ -1387,13 +1715,13 @@ def run_denoise_train(workdir: str):
     prefix, out = os.path.join(workdir, "n2n", "P"), os.path.join(workdir, "n2n", "out")
     epochs, steps = 6, -(-(DENOISE_PAIRS - int(0.1 * DENOISE_PAIRS)) // 4)
     profiling.reset()
-    dm.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     text, _ = cli_captured(["denoise", "-a", dir_a, "-b", dir_b, "--arch", "unet", "-c", "800",
                             "--batch-size", "4", "--num-epochs", str(epochs), "--save-prefix",
                             prefix, "-d", "0", "-o", out, heldout])
     wall = time.perf_counter() - t0
-    launches = dm.launches
+    launches = read_launches("denoise_train")
     rows = denoise_rows(text)
     walls = profiling.samples("denoise_train_epoch")
     if len(rows) != epochs or not all(math.isfinite(v) for r in rows for v in r):
@@ -1509,13 +1837,12 @@ def run_denoise3d(workdir: str):
     from topaz_tpu_torch.denoise import Denoise3D, make_denoise_optimizer, make_denoise_step
     from topaz_tpu_torch.io import mrc
     from topaz_tpu_torch.models.denoise import arch_layout
-    from topaz_tpu_torch.ops import disk_max as dm
     from topaz_tpu_torch.utils import profiling
 
     (even, odd), _ = write_tomograms(workdir, TOMO_SHAPE, "tomo")
     prefix, out = os.path.join(workdir, "tomo", "P3"), os.path.join(workdir, "tomo", "out")
     profiling.reset()
-    dm.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     text, _ = cli_captured(["denoise3d", "-a", even, "-b", odd, "-c", "96", "--N-train", "40",
                             "--N-test", "10", "--batch-size", "10", "--num-epochs", "2",
@@ -1557,7 +1884,7 @@ def run_denoise3d(workdir: str):
     busy_us, wall_us, _ = device_busy(prof, "denoise3d_volume")
     print(f"# denoise3d defaults, warm, under torch.profiler: volume wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}")
-    launches = dm.launches
+    launches = read_launches("denoise3d")
     if launches:
         fail(f"denoise3d launched disk_max {launches} times")
 
@@ -1744,12 +2071,13 @@ def run_extract_targets(workdir: str, files):
     ex.extract_auprc, ex.match_coordinates = recorded, timed_match
     try:
         picks = os.path.join(workdir, "picks_targets.txt")
-        dm.launches = nms.rounds = nms.uploads = 0
+        reset_launches()
+        nms.rounds = nms.uploads = 0
         t0 = time.perf_counter()
         text, err = cli_captured(["extract", "-m", "resnet8_u32", "-t", str(THRESHOLD),
                                   "--targets", targets, "-o", picks, "-d", "0"] + paths)
         wall = time.perf_counter() - t0
-        launches, map_uploads = dm.launches, nms.uploads
+        launches, map_uploads = read_launches("extract_targets"), nms.uploads
         grid = list(records)
         records.clear()
         found = max(grid, key=lambda r: (r["auprc"], -r["radius"]))["radius"]
@@ -1880,14 +2208,13 @@ def run_extract3d(workdir: str):
     from topaz_tpu_torch.io import mrc
     from topaz_tpu_torch.models.factory import new_picker, save_picker
     from topaz_tpu_torch.models.tiling import classify_patches_3d
-    from topaz_tpu_torch.ops import disk_max as dm
     from topaz_tpu_torch.ops import nms
 
     (tomo, _), centers = write_tomograms(workdir, TOMO_SHAPE, "pick3d")
     model = new_picker("resnet8", units=32, dims=3, seed=SEED, device="cuda")
     ckpt = os.path.join(workdir, "picker3d.npz")
     save_picker(ckpt, model)
-    dm.launches = 0
+    reset_launches()
 
     vol = mrc.read(tomo)[0]
     tile = 96
@@ -1974,9 +2301,10 @@ def run_extract3d(workdir: str):
     if score_err > PIPELINE_TOL or pick_err > PIPELINE_TOL or abs(
             vals["cuda"][0] - vals["cpu"][0]) > 1e-3 or vals["cuda"][3] < 1:
         fail(f"extract3d card vs cpu: scores {score_err}, picks {pick_err}, validation {vals}")
-    if dm.launches:
-        fail(f"extract3d launched disk_max {dm.launches} times (the 3D path has no TPU kernel)")
-    return dm.launches
+    launches = read_launches("extract3d")
+    if launches:
+        fail(f"extract3d launched disk_max {launches} times (the 3D path has no TPU kernel)")
+    return launches
 
 
 def write_tomogram_split(workdir: str, split: str, seed: int, labeled: float):
@@ -2025,13 +2353,12 @@ def run_train3d(workdir: str):
     from topaz_tpu_torch.io import mrc
     from topaz_tpu_torch.io.coordinates import read_coordinates
     from topaz_tpu_torch.models.factory import load_picker, new_picker, save_picker
-    from topaz_tpu_torch.ops import disk_max as dm
     from topaz_tpu_torch.train.data import CropSampler, ResidentVolumes
     from topaz_tpu_torch.train.methods import make_loss_fn
     from topaz_tpu_torch.train.trainer import init_train_state, make_train_step
     from topaz_tpu_torch.utils import profiling
 
-    dm.launches = 0
+    reset_launches()
     (train_images, train_targets), train_tomo, centers, n_labeled = write_tomogram_split(
         workdir, "train3d", SEED + 400, 2 / 3)
     (test_images, test_targets), test_tomo, _, _ = write_tomogram_split(
@@ -2145,9 +2472,10 @@ def run_train3d(workdir: str):
         "--train-targets", crop_targets, "-n", str(len(inside)), "-r", "3",
         "--num-epochs", "1", "--epoch-size", "5", "--minibatch-size", "8"], "train3d",
         strict_rows=TRAIN_STRICT_ROWS)
-    if dm.launches:
-        fail(f"train3d launched disk_max {dm.launches} times (3D training has no TPU kernel)")
-    return dm.launches
+    launches = read_launches("train3d")
+    if launches:
+        fail(f"train3d launched disk_max {launches} times (3D training has no TPU kernel)")
+    return launches
 
 
 def run_train_ae(workdir: str, files):
@@ -2179,7 +2507,7 @@ def run_train_ae(workdir: str, files):
     log = prefix + ".tsv"
     argv = ["train", "--train-images", train_images, "--train-targets", train_targets,
             "-n", str(TRAIN_PARTICLES), "-r", "3", "--autoencoder", "1", "--ngf", "32"]
-    dm.launches = 0
+    reset_launches()
     profiling.reset()
     t0 = time.perf_counter()
     epoch_size = TRAIN_AE_EPOCH_SIZE
@@ -2230,10 +2558,10 @@ def run_train_ae(workdir: str, files):
 
     ckpt = prefix + "_epoch2.npz"
     picks = os.path.join(workdir, "train_ae", "picks.txt")
-    dm.launches = 0
+    reset_launches()
     cli(["extract", "-m", ckpt, "-r", str(RADIUS), "-t", str(THRESHOLD), "-o", picks,
          "-d", "0"] + test_paths)
-    launches = dm.launches
+    launches = read_launches("train_ae")
     text, _ = cli_captured(["precision_recall_curve", "--predicted", picks, "--targets",
                             test_targets, "-r", str(RADIUS)])
     prc = float(text.split("auprc=")[1].split(",")[0])
@@ -2318,13 +2646,13 @@ def run_sav_extract(workdir: str, binned):
     for model_arg, tag in ((sav, "sav"), ("resnet16_u32", "alias")):
         picks[tag] = os.path.join(workdir, f"picks_{tag}.txt")
         if tag == "sav":
-            dm.launches = 0
+            reset_launches()
         t0 = time.perf_counter()
         cli(["extract", "-m", model_arg, "-r", str(RADIUS), "-t", str(THRESHOLD),
              "-o", picks[tag], "-d", "0"] + binned)
         torch.cuda.synchronize()
         if tag == "sav":
-            launches = dm.launches
+            launches = read_launches("sav_extract")
         print(f"# tools: extract -m {os.path.basename(model_arg)} on {len(binned)} binned "
               f"micrographs: {time.perf_counter() - t0:.3f} s")
     sav_rows, alias_rows = (read_table_rows(picks[t])[1] for t in ("sav", "alias"))
@@ -2640,7 +2968,6 @@ def run_services(workdir: str, device: str = "0"):
     import topaz_tpu_torch.pipeline as pipeline_mod
     from topaz_tpu_torch.denoise import Denoise
     from topaz_tpu_torch.io import mrc
-    from topaz_tpu_torch.ops import disk_max as dm
     from topaz_tpu_torch.ops.nms import exact_non_maximum_suppression, non_maximum_suppression
     from topaz_tpu_torch.cli.main import main as cli
     from topaz_tpu_torch.serve import TopazService, make_server
@@ -2666,12 +2993,12 @@ def run_services(workdir: str, device: str = "0"):
 
     # 1. warmup through the CLI in this process
     shapes = ",".join(f"{h}x{w}" for h, w in SERVICE_GEOMETRIES)
-    dm.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     _, err = cli_captured(["warmup", "--denoise-model", "unet", "--shapes", shapes,
                            "--batch-sizes", "1,8", "-d", device])
     sync()
-    launches["warmup"] = dm.launches
+    launches["warmup"] = read_launches("warmup")
     wall = time.perf_counter() - t0
     for line in err.splitlines():
         if line.startswith("# warmup"):
@@ -2679,10 +3006,12 @@ def run_services(workdir: str, device: str = "0"):
     done = re.search(r"warmup: (\d+) programs run once", err)
     n_programs = int(done.group(1)) if done else 0
     print(f"# services: warmup {wall:.3f} s, {n_programs} programs, disk_max launches "
-          f"{launches['warmup']}")
-    # on the CPU (a rehearsal) the plain disk max runs: no launches
-    if n_programs != 3 * len(SERVICE_GEOMETRIES) or (cuda and launches["warmup"] <= 0):
-        fail(f"warmup: {n_programs} programs, {launches['warmup']} disk_max launches")
+          f"{launches['warmup']}, gmm_em {GMM_LAUNCHES['warmup']}")
+    # on the CPU (a rehearsal) the plain versions run: no launches
+    if n_programs != 3 * len(SERVICE_GEOMETRIES) or (cuda and min(
+            launches["warmup"], GMM_LAUNCHES["warmup"]) <= 0):
+        fail(f"warmup: {n_programs} programs, {launches['warmup']} disk_max and "
+             f"{GMM_LAUNCHES['warmup']} gmm_em launches")
 
     # 2. the service in this process, as serve runs it (the CLI's defaults)
     bodies = {}
@@ -2703,7 +3032,7 @@ def run_services(workdir: str, device: str = "0"):
         print(f"# services: /healthz device {health['device']} ({health['device_name']})")
         if health["device_name"] != want:
             fail(f"/healthz names {health['device_name']!r}, the card is {want!r}")
-        dm.launches = 0
+        reset_launches()
         serial, lat = {}, []
         t_all = time.perf_counter()
         for p in paths:
@@ -2719,12 +3048,14 @@ def run_services(workdir: str, device: str = "0"):
             latency_line(f"/extract round {k + 1}, {SERVICE_CONCURRENCY} concurrent", lat, wall)
             rounds.append(dict(zip(items, res)))
         sync()
-        launches["serve"] = dm.launches
+        launches["serve"] = read_launches("serve")
         print(f"# services: /extract: {service.n_batches} device batches, largest "
-              f"{service.max_batch_seen}; disk_max launches {launches['serve']}")
-        if service.max_batch_seen <= 1 or (cuda and launches["serve"] <= 0):
+              f"{service.max_batch_seen}; disk_max launches {launches['serve']}, gmm_em "
+              f"{GMM_LAUNCHES['serve']}")
+        if service.max_batch_seen <= 1 or (cuda and min(
+                launches["serve"], GMM_LAUNCHES["serve"]) <= 0):
             fail(f"serve: largest batch {service.max_batch_seen}, "
-                 f"{launches['serve']} disk_max launches")
+                 f"{launches['serve']} disk_max and {GMM_LAUNCHES['serve']} gmm_em launches")
 
         # the direct pipeline on the same files; its score maps are kept
         maps, nms_batched = [], pipeline_mod.nms_topk_batched
@@ -2872,7 +3203,7 @@ def run_services(workdir: str, device: str = "0"):
     out = os.path.join(workdir, "watch", "picks.txt")
     argv = ["watch", frames, "-o", out, "--batch-size", str(BATCH), "--once",
             "--poll-interval", "0.5", "-d", device]
-    dm.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     cli(argv)
     sync()
@@ -2885,7 +3216,7 @@ def run_services(workdir: str, device: str = "0"):
     cli(argv)
     sync()
     dt2 = time.perf_counter() - t0
-    launches["watch"] = dm.launches
+    launches["watch"] = read_launches("watch")
     with open(out) as f:
         lines_out = f.read().splitlines()
 
@@ -2910,9 +3241,11 @@ def run_services(workdir: str, device: str = "0"):
           f"({len(paths) / dt1:.3f} micrographs/s, one 0.5 s poll interval and the pipeline's "
           f"construction included), then {len(new)} new in {dt2:.3f} s "
           f"({len(new) / dt2:.3f}/s), only they; one header; disk_max launches "
-          f"{launches['watch']}; picks vs the pipeline x {factor}: {err} x max(1, |score|)")
-    if err > PIPELINE_TOL or (cuda and launches["watch"] <= 0):
-        fail(f"watch: picks {err} from the pipeline, {launches['watch']} disk_max launches")
+          f"{launches['watch']}, gmm_em {GMM_LAUNCHES['watch']}; picks vs the pipeline x "
+          f"{factor}: {err} x max(1, |score|)")
+    if err > PIPELINE_TOL or (cuda and min(launches["watch"], GMM_LAUNCHES["watch"]) <= 0):
+        fail(f"watch: picks {err} from the pipeline, {launches['watch']} disk_max and "
+             f"{GMM_LAUNCHES['watch']} gmm_em launches")
 
     # 5. exact greedy NMS against the kernel's rounds on the pipeline's maps
     t0 = time.perf_counter()
@@ -2972,7 +3305,6 @@ def run_scaleout(workdir: str):
     from topaz_tpu_torch.io import mrc
     from topaz_tpu_torch.models.denoise_factory import load_denoiser
     from topaz_tpu_torch.models.factory import load_picker
-    from topaz_tpu_torch.ops import disk_max as dm
     from topaz_tpu_torch.ops.nms import non_maximum_suppression
     from topaz_tpu_torch.parallel import mesh as pmesh
     from topaz_tpu_torch.utils.synthetic import make_ctf_micrograph
@@ -3001,11 +3333,11 @@ def run_scaleout(workdir: str):
     runs = {}
     for flag in ("0", "-2"):
         picks = os.path.join(workdir, f"picks{flag}.txt")
-        dm.launches = 0
+        reset_launches()
         cli(["extract", "-m", "resnet8_u32", "-r", str(RADIUS), "-t", str(THRESHOLD),
              "-o", picks, "-d", flag, os.path.join(procs["0"], "raw.mrc")])
         torch.cuda.synchronize()
-        n = dm.launches
+        n = read_launches("scaleout" if flag == "-2" else "scaleout_d0")
         out = os.path.join(workdir, f"den{flag}")
         cli(["denoise", "-m", "unet", "-s", "0", "-d", flag, "-o", out, raw])
         runs[flag] = (read_picks(picks), n, mrc.read(os.path.join(out, "raw.mrc"))[0])
@@ -3092,7 +3424,6 @@ def check_mesh_entry_points(workdir: str, xt, unet_want, x_std: float, normalize
     from topaz_tpu_torch.denoise import (Denoise, make_denoise_optimizer, make_denoise_step)
     from topaz_tpu_torch.io import mrc
     from topaz_tpu_torch.models.denoise_factory import load_denoiser
-    from topaz_tpu_torch.ops import disk_max as dm
     from topaz_tpu_torch.parallel import mesh as pmesh
     from topaz_tpu_torch.pipeline import MicrographPipeline
     from topaz_tpu_torch.preprocess import normalize_images_batched
@@ -3105,10 +3436,10 @@ def check_mesh_entry_points(workdir: str, xt, unet_want, x_std: float, normalize
     one = run_pipeline_pass(MicrographPipeline(**kw), paths, "scaleout, one device",
                             batch_size=4)
     pipe = MicrographPipeline(mesh=pmesh.make_mesh(2, 2, shard_devices(4)), **kw)
-    dm.launches = 0
+    reset_launches()
     meshed = run_pipeline_pass(pipe, paths, "scaleout, [cuda:0] x 4 as 2 x 2", batch_size=4)
     torch.cuda.synchronize()
-    n_mesh = dm.launches
+    n_mesh = read_launches("scaleout_mesh_pipeline")
     perr, derr = 0.0, 0.0
     for path in paths:
         perr = max(perr, compare_picks(picks_of(*meshed[path][:2]), picks_of(*one[path][:2]),
@@ -3343,10 +3674,11 @@ def main() -> None:
     print(f"# card: {card}")
 
     t = time.perf_counter()
-    build_libraries(["disk_max"])
+    build_libraries(["disk_max", "gmm_em"])
     print(f"# kernels built in {time.perf_counter() - t:.2f} s")
 
     err, single, batched, by_radius = check_disk_max()
+    em_rows, em_buckets = check_gmm_em(), {}
     launches = dict.fromkeys(PHASES + ("train_extract", "warmup", "serve", "watch",
                                        "scaleout_mesh_pipeline"))
     r100 = None
@@ -3360,6 +3692,7 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as workdir:
             launches["pipeline"], paths, dev = run_pipeline(workdir)
             hold_pipeline(paths, dev)
+            em_buckets = check_gmm_em_pipeline(paths)
             run_batched_cli(workdir, paths)
     if want("training") or want("extract_targets") or want("train_ae") or want("scaleout"):
         with tempfile.TemporaryDirectory() as workdir:
@@ -3453,6 +3786,33 @@ def main() -> None:
         "single": {"shape": [SIZE // 8, SIZE // 8], **single},
         "r100": r100, "by_radius": by_radius,
     }]
+    # the EM: the pipeline's 512 x 512 bucket leads (the synthetic padded
+    # batch of 8 x 512^2 when the pipeline phase did not run); the other
+    # real inputs and every synthetic case follow
+    em_main = em_buckets.get("bucket_512x512") or next(
+        r for r in em_rows if r["tag"] == "0/1 weights" and r["shape"] == [8, 262144, 11])
+    brief = ("shape", "weights", "num_iters", "ms", "twin_ms", "plain_ms", "bound_ms",
+             "bound_by", "errs", "max_abs_err", "ties")
+    kernels.append({
+        "name": "gmm_em", "route": "cuda",
+        "source": "topaz_tpu_torch/csrc/gmm_em.cu",
+        "replaces": "topaz_tpu/ops/gmm.py:169",
+        "launches": GMM_LAUNCHES.get("pipeline"),
+        "launches_by_path": {path: GMM_LAUNCHES.get(key) for path, key in (
+            ("pipeline", "pipeline"), ("extract", "extract"), ("denoise", "denoise"),
+            ("train", "train"), ("train_extract", "train_extract"),
+            ("denoise_train", "denoise_train"), ("denoise3d", "denoise3d"),
+            ("extract_targets", "extract_targets"), ("extract3d", "extract3d"),
+            ("train3d", "train3d"), ("train_ae", "train_ae"), ("sav_extract", "sav_extract"),
+            ("warmup", "warmup"), ("serve", "serve"), ("watch", "watch"),
+            ("scaleout", "scaleout"), ("scaleout_mesh_pipeline", "scaleout_mesh_pipeline"))},
+        "max_abs_err": max(r["max_abs_err"] for r in em_rows + list(em_buckets.values())),
+        "shape": em_main["shape"], "ms": em_main["ms"], "plain_ms": em_main["plain_ms"],
+        "twin_ms": em_main["twin_ms"], "bound_ms": em_main["bound_ms"],
+        "bound_by": em_main["bound_by"], "library_ms": None,
+        "real": {name: {k: r[k] for k in brief} for name, r in em_buckets.items()},
+        "cases": [{"tag": r["tag"], **{k: r[k] for k in brief}} for r in em_rows],
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     if only != set(PHASES):

@@ -13,7 +13,11 @@ batch 8, host prep and device prep:
    with host prep, downsample) all 24 files, with no device work;
 2. the device alone: each bucket's batch function on batches already on the
    card, host clock around work that ends in a synchronisation, and the
-   part of it in the GMM fit, in scoring + NMS and in the denoise arm;
+   part of it in the GMM fit, in scoring + NMS and in the denoise arm; the
+   GMM fit twice, its EM through the kernel (csrc/gmm_em.cu, one launch a
+   fit, as the pipeline runs it) and through the plain version
+   (ops/gmm._gmm_fit_plain, eager steps with a host check each), so the
+   two stand side by side from one run;
 3. one warm pass of ``process`` under ``torch.profiler``: wall time, the
    device's busy share of it (the union of its kernel and copy intervals),
    and device time by operator. A Chrome trace
@@ -25,6 +29,7 @@ Needs a CUDA device; prints the card's name and power limit first.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import subprocess
 import sys
@@ -58,9 +63,24 @@ def loaders_alone(pipe, paths, batch_size):
     return time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def plain_em():
+    """Within it, gmm_fit runs its EM through the plain version on the card
+    too (for timing the kernel against it; the port never does this)."""
+    from topaz_tpu_torch.ops import gmm
+
+    kernel = gmm._gmm_fit_kernel
+    gmm._gmm_fit_kernel = gmm._gmm_fit_plain
+    try:
+        yield
+    finally:
+        gmm._gmm_fit_kernel = kernel
+
+
 def device_alone(pipe, paths, batch_size):
     """Per bucket: seconds of the batch function on a batch already on the
-    card, and of its GMM fit, its scoring + NMS and its denoise arm."""
+    card, and of its GMM fit (EM through the kernel, and through the plain
+    version), its scoring + NMS and its denoise arm."""
     import numpy as np
     import torch
 
@@ -87,12 +107,15 @@ def device_alone(pipe, paths, batch_size):
             maskf = valid_mask(bucket, valid).float()
             (mu, std, *_), t_gmm = _sync_clock(
                 lambda: norm_fit(x.reshape(B, -1), w=maskf.reshape(B, -1)))
+            with plain_em():
+                _, t_gmm_plain = _sync_clock(
+                    lambda: norm_fit(x.reshape(B, -1), w=maskf.reshape(B, -1)))
             norms = (x - mu[:, None, None]) / std[:, None, None] * maskf
             scores, t_score = _sync_clock(lambda: pipe.picker(norms))
             _, t_nms = _sync_clock(lambda: nms_topk_batched(
                 scores, pipe.radius, pipe.threshold, 4096))
             _, t_den = _sync_clock(lambda: pipe.denoiser(norms[:, None]))
-        rows.append((bucket, len(items), t_all, t_gmm, t_score, t_nms, t_den))
+        rows.append((bucket, len(items), t_all, t_gmm, t_gmm_plain, t_score, t_nms, t_den))
     return rows
 
 
@@ -165,12 +188,13 @@ def main() -> None:
             print(f"# {tag}: loaders alone, {len(paths)} files in {t:.3f} s "
                   f"({len(paths) / t:.3f} files/s)")
             if host:
-                for bucket, b, t_all, t_gmm, t_score, t_nms, t_den in device_alone(
+                for bucket, b, t_all, t_gmm, t_plain, t_score, t_nms, t_den in device_alone(
                         pipe, paths, batch):
                     print(f"# device alone, bucket {bucket} x {b}: batch function "
-                          f"{t_all * 1e3:.3f} ms; GMM {t_gmm * 1e3:.3f} ms, scoring "
-                          f"{t_score * 1e3:.3f} ms, NMS {t_nms * 1e3:.3f} ms, U-Net "
-                          f"{t_den * 1e3:.3f} ms")
+                          f"{t_all * 1e3:.3f} ms; GMM {t_gmm * 1e3:.3f} ms ({t_gmm / t_all:.4f} "
+                          f"of the batch; its EM through the plain version instead "
+                          f"{t_plain * 1e3:.3f} ms), scoring {t_score * 1e3:.3f} ms, NMS "
+                          f"{t_nms * 1e3:.3f} ms, U-Net {t_den * 1e3:.3f} ms")
             profiled_pass(pipe, paths, batch, args.out, tag.replace(" ", "_"))
 
 

@@ -1,31 +1,50 @@
 """Two-component GMM intensity normalization (port of
 topaz_tpu/ops/gmm.py:30-426).
 
-The EM procedure of topaz/stats.py:36-214: the 11 two-component lanes (one
-per initial pi, ``DEFAULT_PIS[:-1]``) run as one (11, N) batch. Each lane
-keeps the reference's early exit: a per-lane ``running`` mask is computed
-before every EM step and a lane that is done, or out of iterations, keeps
-its state, which is exactly what the JAX package's vmapped ``while_loop``
-does. The loop ends when no lane runs, checked on the host once a step.
+The EM procedure of topaz/stats.py:36-214: 11 two-component lanes (one per
+initial pi, ``DEFAULT_PIS[:-1]``) and a single-component lane, the best of
+which normalizes the image. Each EM lane keeps the reference's early exit,
+as the JAX package's vmapped ``while_loop`` (topaz_tpu/ops/gmm.py:169)
+does: it stops on its own, and a lane that is done keeps its state.
 
 The fits also take a batch of images, (B, N), with 0/1 validity weights
-``w`` for the padding of a shape bucket: the (B, 11, N) lanes stand for the
+``w`` for the padding of a shape bucket: the (B, 11) lanes stand for the
 JAX pipeline's ``vmap`` of the masked fit over images (topaz_tpu/
-pipeline.py:203-209), and one host check a step serves the whole batch.
+pipeline.py:203-209).
+
+On the card the EM loop is the CUDA kernel ``csrc/gmm_em.cu``: one launch
+runs every (image, lane) fit of a call to its end, with no host check
+between steps, as JAX's ``while_loop`` runs on the device. A tensor on the
+CPU goes to the plain version, ``_gmm_fit_plain``: the same steps as eager
+PyTorch, with one host check a step. What JAX computes outside its loop
+(the quantile split, the single-component lane, the selection, the
+histogram) stays PyTorch on both.
 
 Numerical contract: same update equations, same init (quantile split,
 shared variance), same MAP pi update, same termination; float32 reduction
-order differs, so mu/std agree to ~1e-5 relative.
+order differs from JAX's, so mu/std agree to ~1e-5 relative. The kernel
+sums in float64; the plain version with float64 sums is its twin (the same
+float32 terms, and on the card the same values and each lane's stop at the
+same step), while the CPU path sums in float32, as JAX does.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+import threading
 
 import numpy as np
 import torch
 
 DEFAULT_PIS = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95, 0.98, 1.0)
+
+# launches of the EM kernel in this process; callers may reset it to 0
+launches = 0
+# the shards of a mesh call the kernel from threads of their own
+# (parallel/mesh.run_each): one build, and no lost count
+_lock = threading.Lock()
 
 
 def _betaln(alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
@@ -68,6 +87,152 @@ def _posteriors(x, mu0, var0, mu1, var1, pi):
     return log_p0, log_p1, Z
 
 
+def _gmm_fit_plain(xb, wb, n, pi, split, alpha, beta, scale, tol, num_iters,
+                   acc=torch.float32, history=None):
+    """The EM of :func:`gmm_fit` in eager PyTorch, one (B, L, N) batch.
+
+    ``xb`` (B, N), ``wb`` (B, N) or None, ``n`` (B,), ``pi`` and ``split``
+    (B, L), all float32 on one device. Each (image, lane) pair keeps the
+    reference's early exit: a ``running`` mask is computed before every
+    step, and a lane that is done, or out of iterations, keeps its state,
+    as the JAX package's vmapped ``while_loop`` does; the loop ends when no
+    lane runs, checked on the host once a step. Returns ((logp, mu0, var0,
+    mu1, var1, pi), steps), each (B, L).
+
+    Sums are taken in ``acc`` and rounded to float32. float32 is the CPU
+    path's, which agrees with JAX's float32 sums lane for lane; with
+    float64 the version is the kernel's twin: the same float32 terms,
+    summed as the kernel sums them, so that the two stop each lane at the
+    same step. With a list ``history``, each step appends (logp - logp_cur,
+    logp, running, mu0, var, mu1, pi), each (B, L), the step's values for
+    every lane (also for lanes that no longer run, which keep their state),
+    for holding a kernel's stops against them."""
+
+    def _sum(t):
+        if acc == t.dtype:
+            return torch.sum(t, dim=-1, keepdim=True)
+        return torch.sum(t, dim=-1, keepdim=True, dtype=acc).to(t.dtype)
+
+    if wb is None:
+        wb = torch.ones_like(xb)
+    n = n.reshape(-1, 1, 1)
+    mu = _sum(xb * wb)[:, None] / n
+    xb, wb = xb[:, None], wb[:, None]
+    pi, split = pi[..., None], split[..., None]
+
+    def weighted_mean(p):
+        s = _sum(p)
+        safe = torch.where(s > 0, s, torch.ones_like(s))
+        return torch.where(s > 0, _sum(xb * p) / safe, mu)
+
+    def stats(p0, p1, pi):
+        mu0 = weighted_mean(p0)
+        mu1 = weighted_mean(p1)
+        var = _sum(p0 * (xb - mu0) ** 2 + p1 * (xb - mu1) ** 2) / n
+        log_p0, log_p1, Z = _posteriors(xb, mu0, var, mu1, var, pi)
+        logp = scale * _sum(wb * Z) + beta_logpdf(pi, alpha, beta)
+        return {"logp": logp, "log_p0": log_p0, "log_p1": log_p1, "Z": Z,
+                "mu0": mu0, "var": var, "mu1": mu1, "pi": pi}
+
+    p0 = (xb <= split).to(xb.dtype) * wb
+    s = stats(p0, wb - p0, pi)
+    s["logp_cur"] = s["logp"]
+    it = torch.zeros(pi.shape, dtype=torch.int32, device=xb.device)
+    done = torch.zeros(pi.shape, dtype=torch.bool, device=xb.device)
+
+    while True:
+        running = (~done) & (it < num_iters)
+        if not bool(running.any()):
+            break
+        p0 = torch.exp(s["log_p0"] - s["Z"]) * wb
+        p1 = torch.exp(s["log_p1"] - s["Z"]) * wb
+        s1 = _sum(p1)
+        a = alpha + s1
+        b = beta + n - s1
+        new = stats(p0, p1, (a - 1) / (a + b - 2))  # MAP pi (stats.py:174-177)
+        gain = new["logp"] - s["logp_cur"]
+        step_done = gain <= tol
+        if history is not None:
+            history.append((gain[..., 0], new["logp"][..., 0], running[..., 0])
+                           + tuple(new[k][..., 0] for k in ("mu0", "var", "mu1", "pi")))
+        new["logp_cur"] = torch.where(step_done, s["logp_cur"], new["logp"])
+        s = {k: torch.where(running, new[k], v) for k, v in s.items()}
+        done = torch.where(running, step_done, done)
+        it = it + running.to(torch.int32)
+    out = tuple(s[k][..., 0] for k in ("logp", "mu0", "var", "mu1", "var", "pi"))
+    return out, it[..., 0]
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    from topaz_tpu_torch._build import build_library
+
+    with _lock:
+        lib = ctypes.CDLL(build_library("gmm_em"))
+    lib.gmm_em_f32.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
+        + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 3)
+    lib.gmm_em_f32.restype = ctypes.c_int
+    return lib
+
+
+def _gmm_fit_kernel(xb, wb, n, pi, split, alpha, beta, scale, tol, num_iters):
+    """The EM of :func:`gmm_fit` in one launch of the CUDA kernel
+    ``csrc/gmm_em.cu`` on a CUDA tensor: no host check between steps, and
+    nothing read back. Same arguments and return as ``_gmm_fit_plain``."""
+    B, N = xb.shape
+    L = pi.shape[-1]
+    args = {"x": (xb, (B, N)), "n": (n, (B,)), "pi": (pi, (B, L)), "split": (split, (B, L))}
+    if wb is not None:
+        args["w"] = (wb, (B, N))
+    for name, (t, shape) in args.items():
+        if (t.device != xb.device or t.dtype != torch.float32 or not t.is_contiguous()
+                or tuple(t.shape) != shape):
+            raise ValueError(f"gmm_fit: {name} must be contiguous float32 of shape {shape} on "
+                             f"{xb.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if N == 0 or N > 2**31 - 1 or B * L > 2**31 - 1:
+        raise ValueError(f"gmm_fit: no kernel launch for {B} images x {L} lanes of {N} pixels")
+    out = torch.empty((6, B, L), dtype=torch.float32, device=xb.device)
+    steps = torch.empty((B, L), dtype=torch.int32, device=xb.device)
+    # log B(alpha, beta) of the float32 alpha and beta, as _betaln takes it
+    a, b = float(np.float32(alpha)), float(np.float32(beta))
+    betaln = math.lgamma(a) + math.lgamma(b) - math.lgamma(a + b)
+    fn = _library().gmm_em_f32
+    with torch.cuda.device(xb.device):
+        stream = torch.cuda.current_stream(xb.device).cuda_stream
+        err = fn(xb.data_ptr(), None if wb is None else wb.data_ptr(), n.data_ptr(),
+                 pi.data_ptr(), split.data_ptr(), B, N, L, alpha, beta, scale, tol,
+                 int(num_iters), betaln, out.data_ptr(), steps.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"gmm_em kernel launch failed with CUDA error {err}")
+    global launches
+    with _lock:
+        launches += 1
+    return tuple(out), steps
+
+
+def _fit_inputs(x, pi, split, w, n):
+    """gmm_fit's arguments as the (B, N), (B, N) or None, (B,), (B, L) and
+    (B, L) float32 tensors of the plain version and the kernel, made on the
+    device with no copy from the host where they are tensors already."""
+    xb = x.reshape(x.shape[0] if x.dim() == 2 else 1, -1).to(torch.float32).contiguous()
+    B, N = xb.shape
+    wb = None if w is None else w.reshape(xb.shape).to(torch.float32).contiguous()
+    if w is None:
+        n = torch.full((B,), float(N), dtype=torch.float32, device=x.device)
+    elif n is None:
+        n = torch.sum(wb, dim=-1)
+    elif isinstance(n, torch.Tensor):
+        n = n.to(device=x.device, dtype=torch.float32).reshape(-1).expand(B).contiguous()
+    else:
+        n = torch.full((B,), float(n), dtype=torch.float32, device=x.device)
+    lanes = []
+    for t in (pi, split):
+        t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
+        lanes.append(t.reshape(-1, t.shape[-1]).expand(B, t.shape[-1]).contiguous())
+    return xb, wb, n, lanes[0], lanes[1]
+
+
 def gmm_fit(
     x: torch.Tensor,
     pi: torch.Tensor,
@@ -91,65 +256,15 @@ def gmm_fit(
     their sum per image restricts the fit to a weighted subset: 0/1
     validity of padded images, or histogram counts. Returns per-lane
     (logp, mu0, var0, mu1, var1, pi), each (L,) or (B, L).
+
+    A CUDA tensor goes to the kernel (``csrc/gmm_em.cu``: the whole fit in
+    one launch, built at first use), a CPU tensor to the plain version.
     """
-    batched = x.dim() == 2
-    xb = x if batched else x.reshape(1, -1)
-    B = xb.shape[0]
-    if w is None:
-        wb = torch.ones_like(xb)
-        n = xb.shape[-1]
-    else:
-        wb = w.reshape(xb.shape).to(x.dtype)
-        if n is None:
-            n = torch.sum(wb, dim=-1)
-    if isinstance(n, torch.Tensor):
-        n = n.reshape(B, 1, 1)
-    mu = torch.sum(xb * wb, dim=-1, keepdim=True)[:, None] / n
-    xb, wb = xb[:, None], wb[:, None]
-    pi = torch.as_tensor(pi, dtype=x.dtype, device=x.device)
-    split = torch.as_tensor(split, dtype=x.dtype, device=x.device)
-    lanes = pi.shape[-1]
-    pi = pi.reshape(-1, lanes).expand(B, lanes)[..., None]
-    split = split.reshape(-1, lanes).expand(B, lanes)[..., None]
-
-    def weighted_mean(p):
-        s = torch.sum(p, dim=-1, keepdim=True)
-        safe = torch.where(s > 0, s, torch.ones_like(s))
-        return torch.where(s > 0, torch.sum(xb * p, dim=-1, keepdim=True) / safe, mu)
-
-    def stats(p0, p1, pi):
-        mu0 = weighted_mean(p0)
-        mu1 = weighted_mean(p1)
-        var = torch.sum(p0 * (xb - mu0) ** 2 + p1 * (xb - mu1) ** 2,
-                        dim=-1, keepdim=True) / n
-        log_p0, log_p1, Z = _posteriors(xb, mu0, var, mu1, var, pi)
-        logp = scale * torch.sum(wb * Z, dim=-1, keepdim=True) + beta_logpdf(pi, alpha, beta)
-        return {"logp": logp, "log_p0": log_p0, "log_p1": log_p1, "Z": Z,
-                "mu0": mu0, "var": var, "mu1": mu1, "pi": pi}
-
-    p0 = (xb <= split).to(x.dtype) * wb
-    s = stats(p0, wb - p0, pi)
-    s["logp_cur"] = s["logp"]
-    it = torch.zeros(pi.shape, dtype=torch.int32, device=x.device)
-    done = torch.zeros(pi.shape, dtype=torch.bool, device=x.device)
-
-    while True:
-        running = (~done) & (it < num_iters)
-        if not bool(running.any()):
-            break
-        p0 = torch.exp(s["log_p0"] - s["Z"]) * wb
-        p1 = torch.exp(s["log_p1"] - s["Z"]) * wb
-        s1 = torch.sum(p1, dim=-1, keepdim=True)
-        a = alpha + s1
-        b = beta + n - s1
-        new = stats(p0, p1, (a - 1) / (a + b - 2))  # MAP pi (stats.py:174-177)
-        step_done = (new["logp"] - s["logp_cur"]) <= tol
-        new["logp_cur"] = torch.where(step_done, s["logp_cur"], new["logp"])
-        s = {k: torch.where(running, new[k], v) for k, v in s.items()}
-        done = torch.where(running, step_done, done)
-        it = it + running.to(torch.int32)
-    out = tuple(s[k][..., 0] for k in ("logp", "mu0", "var", "mu1", "var", "pi"))
-    return out if batched else tuple(v[0] for v in out)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gmm_fit: no kernel for device {x.device}")
+    fit = _gmm_fit_plain if x.device.type == "cpu" else _gmm_fit_kernel
+    out, _steps = fit(*_fit_inputs(x, pi, split, w, n), alpha, beta, scale, tol, num_iters)
+    return out if x.dim() == 2 else tuple(v[0] for v in out)
 
 
 def _guard_degenerate(i, mus, stds, pis_out, logps, mean_all, rng):
