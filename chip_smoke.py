@@ -33,7 +33,11 @@ Phases, in order; any failure exits non-zero before a result is printed:
    version's ms (CUDA events) and the bound printed, and the plain version
    as the CPU path runs it (float32 sums) beside them; then ``gmm_fit``
    under ``torch.cuda.set_sync_debug_mode("error")``: one launch, no host
-   sync.
+   sync; then 8 x 768 x 512 with 0/1 weights, one 4096^2 micrograph fit
+   whole (the recompute route) and one image each side of the largest N
+   whose slices a cluster of 16 keeps whole in shared memory (resident at
+   it, recompute above). Every row has the kernel's plan: its cluster size,
+   route, pixels a block kept and dynamic shared memory.
 4. Drive the main path through the CLI a user calls: a 4096^2 synthetic
    micrograph through ``preprocess -s 8`` and
    ``extract -m resnet8_u32 -r 14 -t -6`` on the card (launch counts read
@@ -73,7 +77,10 @@ Phases, in order; any failure exits non-zero before a result is printed:
    against its twin on the pipeline's real inputs
    (``check_gmm_em_pipeline``): 8 micrographs of each main bucket as the
    pipeline loads them, the 512 x 512 bucket's 65536-bin histogram fit and
-   one 4096^2 micrograph alone, as ``preprocess`` fits it. Then the
+   one 4096^2 micrograph alone, all its pixels (``preprocess --sample 1``;
+   the CLI's default fits a 1/10 sample); for each bucket
+   the selected lane's mu and std of each image, card against CPU, beside
+   the normalized micrograph's difference of phase 4. Then the
    batched CLI: ``normalize -s 8 --batch-size 8`` and
    ``extract -m resnet8_u32 -r 14 -t -6 --batch-size 8`` on the 24 files,
    three of them held against the ``--batch-size 1`` CLI (normalized pixels
@@ -341,8 +348,9 @@ EM_MUFU_PER_EVAL, EM_F32_PER_EVAL = 5, 29
 # with the JAX package
 EM_TOL, GMM_EM_RTOL = 1e-3, 1e-5
 # pixels an image of check_gmm_em's synthetic cases: a small image, and one
-# of the pipeline's 512 x 512 bucket
+# of the pipeline's 512 x 512 bucket; and one of its 768 x 512 bucket
 EM_SIZES = (4096, 262144)
+EM_LARGE = 768 * 512
 
 
 def fail(msg: str) -> None:
@@ -507,6 +515,8 @@ def check_disk_max():
 # the EM kernel's launches on each path, read in the same windows as the
 # disk max's (reset_launches / read_launches)
 GMM_LAUNCHES = {}
+# the normalized micrograph's card-vs-CPU max abs diff of phase slice
+NORMALIZED_ERR = {}
 
 
 def reset_launches() -> None:
@@ -649,6 +659,8 @@ def em_case(tag, inputs, opts):
     xb, wb, n, pi, split = inputs
     alpha, beta, scale, num_iters = opts
     args = (xb, wb, n, pi, split, alpha, beta, scale, EM_TOL, num_iters)
+    plan = gmm._device_plan(torch.cuda.current_device(), xb.shape[0], pi.shape[-1], xb.shape[1],
+                            wb is not None)
     kern, ksteps = gmm._gmm_fit_kernel(*args)
     torch.cuda.synchronize()
     history = []
@@ -661,7 +673,9 @@ def em_case(tag, inputs, opts):
     weights = ("none" if wb is None else "0/1" if bool(((wb == 0) | (wb == 1)).all())
                else "counts")
     row = {"tag": tag, "shape": [xb.shape[0], xb.shape[1], pi.shape[-1]], "weights": weights,
-           "num_iters": num_iters, "errs": errs, "max_abs_err": max_abs, "ties": ties,
+           "num_iters": num_iters, "cluster": plan.cluster, "route": plan.route,
+           "kept": plan.kept, "smem": plan.smem, "errs": errs, "max_abs_err": max_abs,
+           "ties": ties,
            "steps_kernel": ksteps.cpu().tolist(), "steps_twin": tsteps.cpu().tolist(),
            "plain_f32_errs": f32_errs,
            "plain_f32_steps_differ": int((psteps != ksteps).sum())}
@@ -669,8 +683,10 @@ def em_case(tag, inputs, opts):
     row["twin_ms"] = cuda_ms(lambda: gmm._gmm_fit_plain(*args, acc=torch.float64), 1, warmup=0)
     row["plain_ms"] = cuda_ms(lambda: gmm._gmm_fit_plain(*args), 1, warmup=0)
     row["bound_ms"], row["bound_by"] = em_bound(xb, wb, ksteps)
-    print(f"# gmm_em {tag} {tuple(row['shape'])} w={row['weights']} num_iters={num_iters}: "
-          f"max rel diff to the twin " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    print(f"# gmm_em {tag} {tuple(row['shape'])} w={row['weights']} num_iters={num_iters}, "
+          f"C={plan.cluster} {plan.route} ({plan.kept} of {plan.slice} pixels a block kept, "
+          f"{plan.smem} B of shared memory): max rel diff to the twin "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f"; steps kernel {row['steps_kernel']}, twin {row['steps_twin']}, ties {ties}"
           + f"; plain (f32 sums): {row['plain_f32_steps_differ']} lanes stop elsewhere, "
           + ", ".join(f"{k} {v:.3e}" for k, v in f32_errs.items())
@@ -708,7 +724,13 @@ def check_gmm_em():
     padded bucket) and with histogram counts (``norm_fit_hist``'s bins);
     a fit cut at num_iters = 3 (every lane runs to it); a padded batch with
     a dead frame. Then ``gmm_fit`` under torch.cuda.set_sync_debug_mode
-    ("error"): one launch and no host sync in the fit. Returns the rows."""
+    ("error"): one launch and no host sync in the fit. Then, with a seed of
+    their own, the pipeline's 8 x 768 x 512 bucket with 0/1 weights, one
+    4096^2 micrograph fit whole (the recompute route) and one image on each
+    side of the largest N whose slices the largest cluster keeps whole in
+    shared memory (the resident route at it, the recompute route above).
+    Each row has the kernel's plan (cluster size, route, pixels a block
+    kept, dynamic shared memory). Returns the rows."""
     import numpy as np
     import torch
 
@@ -752,20 +774,68 @@ def check_gmm_em():
         fail(f"gmm_fit: {gmm.launches - before} launches, finite "
              f"{[bool(torch.isfinite(v).all()) for v in out]}")
     print("# gmm_fit on the card under set_sync_debug_mode('error'): one launch, no host sync")
+
+    # the pipeline's 768 x 512 bucket, one micrograph fit whole at 4096^2
+    # (no plan keeps all its slices), and both sides of the largest N whose
+    # slices the largest cluster keeps whole
+    rng = np.random.default_rng(SEED + 16)
+    N = EM_LARGE
+    x, w = em_mixture(rng, 8, N, rng.integers(N // 2, N + 1, 8))
+    rows.append(em_case("0/1 weights", *em_inputs(gmm.norm_fit, x, w=w)))
+    x, _ = em_mixture(rng, 1, SIZE * SIZE)
+    rows.append(em_case("unweighted, whole 4096^2", *em_inputs(gmm.norm_fit, x)))
+    if rows[-1]["route"] != "recompute":
+        fail(f"gmm_em at 4096^2: route {rows[-1]['route']}")
+    limit = gmm.MAX_CLUSTER * (gmm._smem_limit(torch.cuda.current_device()) // 8)
+    for N, route in ((limit, "resident"), (limit + 1, "recompute")):
+        x, _ = em_mixture(rng, 1, N)
+        rows.append(em_case(f"unweighted, {'at' if N == limit else 'above'} the resident limit",
+                            *em_inputs(gmm.norm_fit, x)))
+        if rows[-1]["route"] != route:
+            fail(f"gmm_em at N = {N}: route {rows[-1]['route']}, not {route}")
     return rows
 
 
-def check_gmm_em_pipeline(paths):
-    """The EM kernel against its plain twin on the pipeline's real inputs:
-    a batch of 8 of each main bucket as the pipeline loads it (host prep),
-    fit as its batch function fits it (masked ``norm_fit``), the 512 x 512
-    bucket's histogram fit (``norm_fit_hist``, 65536 bins, as the pipeline
-    runs with ``bins``) and the first 4096^2 micrograph alone, unmasked, as
-    ``preprocess`` fits it. Returns {name: row}."""
-    import numpy as np
+def selected_card_vs_cpu(name, x, w):
+    """Each image's selected lane of the masked ``norm_fit`` (the
+    pipeline's) on the card against the CPU path's own ``norm_fit`` of the
+    image (all 11 EM lanes and the single-component lane, the plain
+    version's float32 sums, as JAX's; an image a call, ~2x faster than the
+    batch on the host): the largest relative differences of mu and std over
+    the batch, printed beside the normalized micrograph's card-vs-CPU
+    difference of phase ``slice``, and the images whose CPU selection is
+    not the card's. Lanes that stop a step apart on the two, and near-tied
+    lanes that select differently, move them."""
     import torch
 
     from topaz_tpu_torch.ops import gmm
+
+    card = gmm.norm_fit(x, w=w)
+    start = time.perf_counter()
+    fits = [gmm.norm_fit(x[b:b + 1].cpu(), w=w[b:b + 1].cpu()) for b in range(x.shape[0])]
+    cpu = [torch.cat(v) for v in zip(*fits)]
+    cpu_s = time.perf_counter() - start
+    want = [v.double().cpu() for v in card[:2]]
+    got = [v.double() for v in cpu[:2]]
+    diff = {k: float(((a - b).abs() / b.abs()).max()) for k, a, b in zip(("mu", "std"), want, got)}
+    other = int((torch.argmax(cpu[7], dim=-1) != torch.argmax(card[7], dim=-1).cpu()).sum())
+    print(f"# gmm_em pipeline {name}: the selected lane, card vs cpu, {x.shape[0]} images: max "
+          f"rel diff mu {diff['mu']:.3e}, std {diff['std']:.3e}; {other} images select another "
+          f"lane on the cpu, whose fit took {cpu_s:.1f} s (the normalized micrograph of phase "
+          f"slice: max abs diff {NORMALIZED_ERR.get('slice', 'not run')})")
+    if not all(math.isfinite(v) for v in diff.values()):
+        fail(f"gmm_em pipeline {name}: selected lane card vs cpu {diff}")
+    return {**diff, "images_selecting_another_lane": other, "cpu_s": cpu_s}
+
+
+def pipeline_em_inputs(paths):
+    """The pipeline's real EM inputs on the card, as the pipeline loads the
+    files (host prep): {name: (x, w)} for a batch of 8 of each main bucket,
+    (B, N) pixels and 0/1 validity weights, and "single": the first 4096^2
+    micrograph of the 512 x 512 bucket alone, (1, N), with no weights."""
+    import numpy as np
+    import torch
+
     from topaz_tpu_torch.pipeline import MicrographPipeline, _image_shape
     from topaz_tpu_torch.utils.batching import valid_mask
 
@@ -775,7 +845,7 @@ def check_gmm_em_pipeline(paths):
     for p in paths:
         ds = pipe._ds_shape(_image_shape(p))
         by_bucket.setdefault(pipe._bucket_for(ds), []).append((p, ds))
-    rows = {}
+    out = {}
     for bucket, items in sorted(by_bucket.items()):
         if len(items) < BATCH:
             continue
@@ -783,15 +853,35 @@ def check_gmm_em_pipeline(paths):
         x = torch.from_numpy(np.stack([pipe._load_one(p, bucket) for p, _ in items])).cuda()
         valid = torch.tensor([ds for _, ds in items]).cuda()
         w = valid_mask(bucket, valid).float().reshape(BATCH, -1)
-        x = x.reshape(BATCH, -1)
-        name = f"bucket_{bucket[0]}x{bucket[1]}"
-        rows[name] = em_case(f"pipeline {name}", *em_inputs(gmm.norm_fit, x, w=w))
+        out[f"bucket_{bucket[0]}x{bucket[1]}"] = (x.reshape(BATCH, -1), w)
         if bucket == (SIZE // 8, SIZE // 8):
-            rows["hist"] = em_case(f"pipeline {name}, 65536 bins",
-                                   *em_inputs(gmm.norm_fit_hist, x, bins=65536, w=w))
             path = next(p for p, ds in by_bucket[bucket] if ds == bucket)
             one = torch.from_numpy(pipe._load_one(path, bucket)).cuda().reshape(1, -1)
-            rows["single"] = em_case("preprocess, one micrograph", *em_inputs(gmm.norm_fit, one))
+            out["single"] = (one, None)
+    return out
+
+
+def check_gmm_em_pipeline(paths):
+    """The EM kernel against its plain twin on the pipeline's real inputs
+    (``pipeline_em_inputs``): a batch of 8 of each main bucket, fit as its
+    batch function fits it (masked ``norm_fit``), the 512 x 512 bucket's
+    histogram fit (``norm_fit_hist``, 65536 bins, as the pipeline runs with
+    ``bins``) and the first 4096^2 micrograph alone, unmasked, all its
+    pixels (``preprocess --sample 1``); with each bucket's selected lanes
+    card vs CPU
+    (``selected_card_vs_cpu``). Returns {name: row}."""
+    from topaz_tpu_torch.ops import gmm
+
+    rows = {}
+    for name, (x, w) in pipeline_em_inputs(paths).items():
+        if name == "single":
+            rows[name] = em_case("preprocess, one micrograph", *em_inputs(gmm.norm_fit, x))
+            continue
+        rows[name] = em_case(f"pipeline {name}", *em_inputs(gmm.norm_fit, x, w=w))
+        rows[name]["selected_card_vs_cpu"] = selected_card_vs_cpu(name, x, w)
+        if name == f"bucket_{SIZE // 8}x{SIZE // 8}":
+            rows["hist"] = em_case(f"pipeline {name}, 65536 bins",
+                                   *em_inputs(gmm.norm_fit_hist, x, bins=65536, w=w))
     if len(rows) != 4 or "hist" not in rows or "single" not in rows:
         fail(f"gmm_em on the pipeline's buckets: got {sorted(rows)}")
     return rows
@@ -886,6 +976,7 @@ def run_slice(workdir: str):
 
     a, b = mrc.read(proc_card)[0], mrc.read(proc_cpu)[0]
     img_err = float(np.abs(a.astype(np.float64) - b).max())
+    NORMALIZED_ERR["slice"] = img_err
     print(f"# normalized micrograph {a.shape}: card vs cpu max abs diff {img_err}")
     if a.shape != (SIZE // 8, SIZE // 8) or not np.isfinite(a).all() or img_err > 1e-3:
         fail(f"normalized micrograph: shape {a.shape}, max abs diff {img_err}")
@@ -3678,22 +3769,33 @@ def main() -> None:
     print(f"# kernels built in {time.perf_counter() - t:.2f} s")
 
     err, single, batched, by_radius = check_disk_max()
+    t = time.perf_counter()
     em_rows, em_buckets = check_gmm_em(), {}
+    print(f"# gmm_em check: {time.perf_counter() - t:.1f} s")
     launches = dict.fromkeys(PHASES + ("train_extract", "warmup", "serve", "watch",
                                        "scaleout_mesh_pipeline"))
     r100 = None
     if want("slice") or want("denoise"):
         with tempfile.TemporaryDirectory() as workdir:
+            t = time.perf_counter()
             launches["slice"] = run_slice(workdir)
+            print(f"# slice phase: {time.perf_counter() - t:.1f} s")
             if want("denoise"):
+                t = time.perf_counter()
                 run_denoise(workdir)
                 launches["denoise"] = 0
+                print(f"# denoise phase: {time.perf_counter() - t:.1f} s")
     if want("pipeline"):
         with tempfile.TemporaryDirectory() as workdir:
+            t = time.perf_counter()
             launches["pipeline"], paths, dev = run_pipeline(workdir)
             hold_pipeline(paths, dev)
+            t_em = time.perf_counter()
             em_buckets = check_gmm_em_pipeline(paths)
+            t_em = time.perf_counter() - t_em
             run_batched_cli(workdir, paths)
+            print(f"# pipeline phase: {time.perf_counter() - t:.1f} s ({t_em:.1f} s of it "
+                  f"check_gmm_em_pipeline)")
     if want("training") or want("extract_targets") or want("train_ae") or want("scaleout"):
         with tempfile.TemporaryDirectory() as workdir:
             files = write_training_set(workdir)
@@ -3791,8 +3893,8 @@ def main() -> None:
     # real inputs and every synthetic case follow
     em_main = em_buckets.get("bucket_512x512") or next(
         r for r in em_rows if r["tag"] == "0/1 weights" and r["shape"] == [8, 262144, 11])
-    brief = ("shape", "weights", "num_iters", "ms", "twin_ms", "plain_ms", "bound_ms",
-             "bound_by", "errs", "max_abs_err", "ties")
+    brief = ("shape", "weights", "num_iters", "cluster", "route", "kept", "smem", "ms",
+             "twin_ms", "plain_ms", "bound_ms", "bound_by", "errs", "max_abs_err", "ties")
     kernels.append({
         "name": "gmm_em", "route": "cuda",
         "source": "topaz_tpu_torch/csrc/gmm_em.cu",
@@ -3807,10 +3909,12 @@ def main() -> None:
             ("warmup", "warmup"), ("serve", "serve"), ("watch", "watch"),
             ("scaleout", "scaleout"), ("scaleout_mesh_pipeline", "scaleout_mesh_pipeline"))},
         "max_abs_err": max(r["max_abs_err"] for r in em_rows + list(em_buckets.values())),
-        "shape": em_main["shape"], "ms": em_main["ms"], "plain_ms": em_main["plain_ms"],
+        "shape": em_main["shape"], "cluster": em_main["cluster"], "route": em_main["route"],
+        "ms": em_main["ms"], "plain_ms": em_main["plain_ms"],
         "twin_ms": em_main["twin_ms"], "bound_ms": em_main["bound_ms"],
         "bound_by": em_main["bound_by"], "library_ms": None,
-        "real": {name: {k: r[k] for k in brief} for name, r in em_buckets.items()},
+        "real": {name: {k: r[k] for k in brief + ("selected_card_vs_cpu",) if k in r}
+                 for name, r in em_buckets.items()},
         "cases": [{"tag": r["tag"], **{k: r[k] for k in brief}} for r in em_rows],
     })
     print(json.dumps({"kernels": kernels}))

@@ -19,6 +19,7 @@ file imports JAX only inside the CPU tests' fixture, so that on a machine
 with a card and no JAX ``python -m pytest --noconftest -p no:cacheprovider
 -m cuda tests/test_torch_gmm_em.py`` runs the card's cases."""
 
+import functools
 import math
 
 import numpy as np
@@ -288,15 +289,133 @@ def test_plain_history_records_each_lanes_stop():
             assert gains[-1] <= tol or k == 100
 
 
+# clusters of C blocks an H100 80GB HBM3 holds at once, as
+# cudaOccupancyMaxActiveClusters gives them for the EM kernel (1024 threads
+# a block, a block an SM; a cluster lives in one GPC), and the dynamic
+# shared memory a block of it may take: 227 KB less its static 2040 bytes
+H100_CLUSTERS = {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 9: 9}
+H100_SMEM = 232448 - 2040
+
+
+def _h100_clusters(weighted, cluster, smem):
+    return H100_CLUSTERS.get(cluster, 7) if smem <= H100_SMEM else 0
+
+
+# (B, L, N, weighted) as the callers fit: one 512^2 micrograph, the
+# pipeline's 8 x 512^2 and 8 x 768 x 512 buckets, the 65536-bin histogram
+# of a bucket, a 4096^2 micrograph fit whole, one pixel, and a call at the
+# launch limit (MAX_LANES lanes of the smallest cluster)
+PLAN_SHAPES = [(1, 11, 512 * 512, False), (8, 11, 512 * 512, True), (8, 11, 768 * 512, True),
+               (8, 11, 65536, True), (1, 11, 4096 * 4096, False), (1, 11, 1, False),
+               (tgmm.MAX_LANES, 1, 64, False)]
+
+
+@pytest.mark.parametrize("card", ["h100", "portable", "small smem"])
+@pytest.mark.parametrize("B, L, N, weighted", PLAN_SHAPES)
+def test_em_plan_is_valid_at_the_callers_shapes(B, L, N, weighted, card):
+    """The plan covers the image with its slices, keeps as many of a
+    slice's pixels as the shared memory it was given holds, takes clusters
+    of more than 8 blocks only where the card holds them (a card that
+    refuses non-portable sizes holds none), fits one launch, and asks for a
+    cluster size of which the card holds at least one."""
+    smem = 48 * 1024 if card == "small smem" else H100_SMEM
+    asked = []
+
+    def active(weighted, cluster, nbytes):
+        asked.append((cluster, nbytes))
+        if card == "portable" and cluster > 8:
+            return 0
+        return _h100_clusters(weighted, cluster, nbytes)
+
+    plan = tgmm._em_plan(B, L, N, weighted, 132, smem, active)
+    assert 2 <= plan.cluster <= (8 if card == "portable" else tgmm.MAX_CLUSTER)
+    assert plan.slice == -(-N // plan.cluster) and plan.cluster * plan.slice >= N
+    assert plan.kept == min(plan.slice, smem // 8)
+    assert plan.smem == 8 * plan.kept <= smem
+    assert plan.route == ("resident" if plan.kept == plan.slice else "recompute")
+    assert active(weighted, plan.cluster, plan.smem) >= 1
+    assert (plan.cluster, plan.smem) in asked
+    assert B * L * plan.cluster <= tgmm.MAX_GRID
+    if B * L == tgmm.MAX_LANES:
+        assert plan.cluster == 2
+
+
+def test_em_plan_routes_at_the_shared_memory_limit():
+    """One 512^2 micrograph keeps its responsibilities in shared memory on
+    an H100, a 4096^2 micrograph recomputes most; at 16 blocks of
+    H100_SMEM // 8 pixels the route changes between N and N + 1."""
+    def plan(B, N, weighted=True):
+        return tgmm._em_plan(B, 11, N, weighted, 132, H100_SMEM, _h100_clusters)
+
+    assert plan(1, 512 * 512, False).route == "resident"
+    assert plan(1, 4096 * 4096, False).route == "recompute"
+    limit = 16 * (H100_SMEM // 8)
+    at, above = plan(1, limit, False), plan(1, limit + 1, False)
+    assert (at.route, at.cluster, at.kept) == ("resident", 16, H100_SMEM // 8)
+    assert above.route == "recompute"
+
+
+@pytest.mark.parametrize("why", ["too many lanes", "no cluster fits", "no pixels"])
+def test_em_plan_refuses_what_no_cluster_runs(why):
+    B, N, active = 8, 4096, _h100_clusters
+    if why == "too many lanes":
+        B = tgmm.MAX_LANES + 1
+    elif why == "no cluster fits":
+        active = lambda weighted, cluster, smem: 0  # noqa: E731
+    else:
+        N = 0
+    with pytest.raises(ValueError, match="gmm_fit"):
+        tgmm._em_plan(B, 1 if why == "too many lanes" else 11, N, False, 132, H100_SMEM, active)
+
+
+@pytest.mark.parametrize("B, L", [(1, 11), (8, 11), (3, 5), (5, 1)])
+def test_lane_order_round_trips(B, L):
+    """The kernel's lane-major grid: a permutation of the B x L outputs
+    whose inverse gives back each (image, lane) pair, and the B images'
+    lane 0 (pi 0.1, the longest) first."""
+    order = tgmm._lane_order(B, L)
+    assert sorted(order.tolist()) == list(range(B * L))
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(B * L)
+    for b in range(B):
+        for lane in range(L):
+            q = int(inverse[b * L + lane])
+            assert q == lane * B + b and divmod(int(order[q]), L) == (b, lane)
+    assert order[:B].tolist() == [b * L for b in range(B)]
+
+
+def _card_plan(x, w, route):
+    """The device's plan for the fit of (x, w), or ("other") where it is
+    resident the recompute route at its size with no pixel kept, else the
+    cheapest plan of another size."""
+    B, N = x.shape
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    plan = tgmm._device_plan(index, B, 11, N, w is not None)
+    if route == "planned":
+        return plan
+    if plan.route == "resident":
+        return plan._replace(kept=0, smem=0)
+    found = tgmm._em_candidates(
+        B, 11, N, w is not None, torch.cuda.get_device_properties(index).multi_processor_count,
+        tgmm._smem_limit(index), functools.partial(tgmm._max_clusters, index))
+    return min((f for f in found if f[0] != plan), key=lambda f: f[2])[0]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["planned", "other"])
 @pytest.mark.parametrize("weights", ["none", "0/1", "counts"])
-@pytest.mark.parametrize("N", [4096, 262144])
+@pytest.mark.parametrize("N", [4096, 262144, "limit", "limit+1"])
 @pytest.mark.parametrize("B", [1, 8])
-def test_kernel_matches_plain_twin_on_the_card(cuda_device, B, N, weights):
+def test_kernel_matches_plain_twin_on_the_card(cuda_device, B, N, weights, route):
     """The kernel against the plain version with float64 sums on the same
     inputs, on the card: mu, std, pi and logp within 1e-5 relative, each
     lane at the twin's step (or one apart at a tie with tol), one launch a
-    fit."""
+    fit; on the device's plan and on the other route (or another cluster
+    size), and on both sides of the largest N whose slices fit in shared
+    memory (``N`` "limit" and "limit+1")."""
+    if isinstance(N, str):
+        limit = tgmm.MAX_CLUSTER * (tgmm._smem_limit(torch.cuda.current_device()) // 8)
+        N = limit + (N == "limit+1")
     rng = np.random.default_rng(B * 1000 + N % 997 + len(weights))
     if weights == "counts":
         x, _ = em_mixture(rng, B, 4 * N)
@@ -309,8 +428,9 @@ def test_kernel_matches_plain_twin_on_the_card(cuda_device, B, N, weights):
         inputs, opts = em_inputs(tgmm.norm_fit, x)
     alpha, beta, scale, num_iters = opts
     args = inputs + (alpha, beta, scale, 1e-3, num_iters)
+    plan = _card_plan(inputs[0], inputs[1], route)
     before = tgmm.launches
-    kern, ksteps = tgmm._gmm_fit_kernel(*args)
+    kern, ksteps = tgmm._gmm_fit_kernel(*args, plan=plan)
     torch.cuda.synchronize()
     assert tgmm.launches == before + 1
     history = []
@@ -318,6 +438,6 @@ def test_kernel_matches_plain_twin_on_the_card(cuda_device, B, N, weights):
     history = [dict(zip(("gain", "logp", "running", "mu0", "var", "mu1", "pi"), h))
                for h in history]
     errs, _, ties, bad = em_compare(kern, ksteps, twin, tsteps, history)
-    assert not bad, f"lanes stopping elsewhere than the twin: {bad}"
-    assert max(errs.values()) <= RTOL, errs
+    assert not bad, f"lanes stopping elsewhere than the twin: {bad} ({plan})"
+    assert max(errs.values()) <= RTOL, (errs, plan)
     assert math.isfinite(sum(errs.values()))

@@ -14,7 +14,10 @@ pipeline.py:203-209).
 
 On the card the EM loop is the CUDA kernel ``csrc/gmm_em.cu``: one launch
 runs every (image, lane) fit of a call to its end, with no host check
-between steps, as JAX's ``while_loop`` runs on the device. A tensor on the
+between steps, as JAX's ``while_loop`` runs on the device; each lane runs
+over a thread-block cluster, on the plan ``_em_plan`` makes from the
+card's limits (cluster size, and the pixels a block keeps in shared
+memory). A tensor on the
 CPU goes to the plain version, ``_gmm_fit_plain``: the same steps as eager
 PyTorch, with one host check a step. What JAX computes outside its loop
 (the quantile split, the single-component lane, the selection, the
@@ -34,6 +37,7 @@ import ctypes
 import functools
 import math
 import threading
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -170,16 +174,132 @@ def _library() -> ctypes.CDLL:
     with _lock:
         lib = ctypes.CDLL(build_library("gmm_em"))
     lib.gmm_em_f32.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4
         + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 3)
     lib.gmm_em_f32.restype = ctypes.c_int
+    lib.gmm_em_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.gmm_em_smem_limit.restype = ctypes.c_int
+    lib.gmm_em_max_clusters.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.gmm_em_max_clusters.restype = ctypes.c_int
     return lib
 
 
-def _gmm_fit_kernel(xb, wb, n, pi, split, alpha, beta, scale, tol, num_iters):
+# How the kernel runs a call: each (image, lane) pair over a thread-block
+# cluster of `cluster` blocks, rank r on pixels [r slice, (r + 1) slice);
+# each block keeps the responsibilities of the first `kept` pixels of its
+# slice in `smem` bytes of dynamic shared memory (8 a pixel), from each
+# evaluation to the next step's variance, and evaluates those of the others
+# again. The route is "resident" where a block keeps its whole slice.
+class EmPlan(namedtuple("EmPlan", "cluster kept smem slice")):
+    @property
+    def route(self) -> str:
+        return "resident" if self.kept == self.slice else "recompute"
+
+
+# cluster sizes: up to 8 blocks on every card of compute capability 9.0;
+# the kernel asks for up to 16 (non-portable sizes, which an H100 allows),
+# and the card's cudaOccupancyMaxActiveClusters rules out what it cannot run
+MAX_CLUSTER = 16
+# the blocks of one launch (gridDim.x), and so the lanes of one call at the
+# smallest cluster
+MAX_GRID = 2**31 - 1
+MAX_LANES = MAX_GRID // 2
+# _em_plan's cost of a lane step on one block, in posterior evaluations of
+# one pixel (~0.54 ns each on an H100's SM): a kept pixel's variance term;
+# a step's fixed cost, and its growth a block above 8; and the share of a
+# call's lanes that run long (on micrographs, those of pi 0.1-0.5: 5 of
+# 11). Fitted to the times of every plan at the callers' shapes
+# (tools/profile_torch_gmm_em.py --refit): a step alone costs ~10000, but
+# the turns of the model do not see lanes of unequal length share the
+# clusters, and a fixed cost of 0-2000 ranks the plans best.
+KEPT_COST, STEP_COST, STEP_COST_ABOVE_8, LONG_LANES = 0.2, 1000, 600, 0.5
+
+
+def _em_candidates(B, L, N, weighted, sm_count, max_smem_per_block, max_active_clusters):
+    """Every cluster size the kernel can run a call of B x L lanes of N
+    pixels on, as [(plan, active clusters, cost)]: each size from 2 to
+    MAX_CLUSTER whose grid fits one launch, each block keeping as many of
+    its pixels as ``max_smem_per_block`` holds, with at least one such
+    cluster resident on the card (``max_active_clusters(weighted, cluster,
+    smem)``, capped at ``sm_count // cluster``). The cost is a lane step's
+    time on one block times the long lanes a cluster runs in turn
+    (LONG_LANES of the lanes over the active clusters, at least one)."""
+    if N <= 0:
+        raise ValueError(f"gmm_fit: no plan for {N} pixels")
+    lanes = B * L
+    out = []
+    for c in range(2, MAX_CLUSTER + 1):
+        if lanes * c > MAX_GRID or c > sm_count:
+            break
+        slice_ = -(-N // c)
+        kept = min(slice_, max_smem_per_block // 8)
+        active = min(int(max_active_clusters(weighted, c, 8 * kept)), sm_count // c)
+        if active < 1:
+            continue
+        step = (2 * slice_ - kept + KEPT_COST * kept + STEP_COST
+                + STEP_COST_ABOVE_8 * max(0, c - 8))
+        turns = max(1.0, LONG_LANES * lanes / active)
+        out.append((EmPlan(c, kept, 8 * kept, slice_), active, turns * step))
+    return out
+
+
+def _em_plan(B, L, N, weighted, sm_count, max_smem_per_block, max_active_clusters) -> EmPlan:
+    """The kernel's plan for B x L lanes of N pixels on a card with
+    ``sm_count`` SMs, ``max_smem_per_block`` bytes of dynamic shared memory
+    a block and ``max_active_clusters`` (see ``_em_candidates``): the
+    candidate of least cost, the smaller cluster on a tie. Raises
+    ValueError where no cluster can run the call."""
+    found = _em_candidates(B, L, N, weighted, sm_count, max_smem_per_block, max_active_clusters)
+    if not found:
+        raise ValueError(f"gmm_fit: no cluster runs {B} x {L} lanes of {N} pixels")
+    return min(found, key=lambda f: (f[2], f[0].cluster))[0]
+
+
+def _lane_order(B, L) -> torch.Tensor:
+    """The kernel's grid order (csrc/gmm_em.cu, lane-major): cluster q runs
+    lane l = q // B of image b = q % B, whose outputs sit at b * L + l, so
+    the lanes of small pi, the longest on real images, start first.
+    Returns those output indices in launch order."""
+    q = torch.arange(B * L)
+    return (q % B) * L + q // B
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limit(index: int) -> int:
+    out = ctypes.c_int()
+    with torch.cuda.device(index):
+        err = _library().gmm_em_smem_limit(ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"gmm_em: shared memory query failed with CUDA error {err}")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(index: int, weighted: bool, cluster: int, smem: int) -> int:
+    out = ctypes.c_int()
+    with torch.cuda.device(index):
+        err = _library().gmm_em_max_clusters(int(weighted), cluster, smem, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"gmm_em: cluster occupancy query failed with CUDA error {err}")
+    return out.value
+
+
+@functools.lru_cache(maxsize=1024)
+def _device_plan(index: int, B: int, L: int, N: int, weighted: bool) -> EmPlan:
+    """``_em_plan`` with the limits of CUDA device ``index``: its SMs
+    (``torch.cuda.get_device_properties``), the dynamic shared memory a
+    block may take and the clusters it holds at once (the kernel's own
+    queries)."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return _em_plan(B, L, N, weighted, sms, _smem_limit(index),
+                    functools.partial(_max_clusters, index))
+
+
+def _gmm_fit_kernel(xb, wb, n, pi, split, alpha, beta, scale, tol, num_iters, plan=None):
     """The EM of :func:`gmm_fit` in one launch of the CUDA kernel
     ``csrc/gmm_em.cu`` on a CUDA tensor: no host check between steps, and
-    nothing read back. Same arguments and return as ``_gmm_fit_plain``."""
+    nothing read back. Same arguments and return as ``_gmm_fit_plain``;
+    ``plan`` (an ``EmPlan``) overrides the device's ``_device_plan``."""
     B, N = xb.shape
     L = pi.shape[-1]
     args = {"x": (xb, (B, N)), "n": (n, (B,)), "pi": (pi, (B, L)), "split": (split, (B, L))}
@@ -190,21 +310,26 @@ def _gmm_fit_kernel(xb, wb, n, pi, split, alpha, beta, scale, tol, num_iters):
                 or tuple(t.shape) != shape):
             raise ValueError(f"gmm_fit: {name} must be contiguous float32 of shape {shape} on "
                              f"{xb.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if N == 0 or N > 2**31 - 1 or B * L > 2**31 - 1:
+    if N == 0 or N > 2**31 - 1 or B * L > MAX_LANES:
         raise ValueError(f"gmm_fit: no kernel launch for {B} images x {L} lanes of {N} pixels")
     out = torch.empty((6, B, L), dtype=torch.float32, device=xb.device)
     steps = torch.empty((B, L), dtype=torch.int32, device=xb.device)
+    if B * L == 0:
+        return tuple(out), steps
+    fn = _library().gmm_em_f32
     # log B(alpha, beta) of the float32 alpha and beta, as _betaln takes it
     a, b = float(np.float32(alpha)), float(np.float32(beta))
     betaln = math.lgamma(a) + math.lgamma(b) - math.lgamma(a + b)
-    fn = _library().gmm_em_f32
     with torch.cuda.device(xb.device):
+        if plan is None:
+            plan = _device_plan(torch.cuda.current_device(), B, L, N, wb is not None)
         stream = torch.cuda.current_stream(xb.device).cuda_stream
         err = fn(xb.data_ptr(), None if wb is None else wb.data_ptr(), n.data_ptr(),
-                 pi.data_ptr(), split.data_ptr(), B, N, L, alpha, beta, scale, tol,
-                 int(num_iters), betaln, out.data_ptr(), steps.data_ptr(), stream)
+                 pi.data_ptr(), split.data_ptr(), B, N, L, plan.cluster, plan.kept,
+                 alpha, beta, scale, tol, int(num_iters), betaln, out.data_ptr(),
+                 steps.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"gmm_em kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"gmm_em kernel launch failed with CUDA error {err} ({plan})")
     global launches
     with _lock:
         launches += 1
