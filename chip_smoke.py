@@ -1153,7 +1153,7 @@ def run_pipeline_pass(pipe, paths, tag: str, batch_size: int = BATCH):
     print(f"# pipeline {tag}: {len(out)} micrographs in {dt:.3f} s, "
           f"{len(out) / dt:.3f} micrographs/s; programs {pipe.num_programs}")
     for name, t in profiling.timings().items():
-        print(f"#   stage {name}: {t['count']} batches, mean {t['mean_ms']:.3f} ms, "
+        print(f"#   stage {name}: {t['count']} spans, mean {t['mean_ms']:.3f} ms, "
               f"total {t['total_s']:.3f} s")
     return out
 

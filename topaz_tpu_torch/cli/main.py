@@ -51,13 +51,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     from topaz_tpu_torch.device import DeviceUnavailableError
+    from topaz_tpu_torch.utils.profiling import profile_session
 
     parser = build_parser()
     args, unknown = parser.parse_known_args(argv)
     if unknown and args.command not in NOT_PORTED:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
     try:
-        args.func(args)
+        # TOPAZ_PROFILE=<dir>: a Chrome trace of the whole command
+        with profile_session():
+            args.func(args)
     except NotImplementedError as e:
         sys.exit(f"error: {e} (see ROADMAP.md; the JAX package runs it: "
                  f"python -m topaz_tpu)")

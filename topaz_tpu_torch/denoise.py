@@ -615,32 +615,35 @@ def denoise_image(mic, models: List[Denoise], lowpass: float = 1,
     models' device. ``downsample > 1`` Fourier-crops the micrograph first
     and denoises at the reduced scale; the output is then downsampled."""
     device = models[0].device
-    x = as_device_tensor(mic, device)
-    if downsample > 1:
-        x = fourier.downsample(x, downsample, device=device)
-    if lowpass > 1:
-        x = fourier.lowpass(x, lowpass, device=device)
+    with stage("denoise/upload", device=device):
+        x = as_device_tensor(mic, device)
+    with stage("denoise/filter", device=device):
+        if downsample > 1:
+            x = fourier.downsample(x, downsample, device=device)
+        if lowpass > 1:
+            x = fourier.lowpass(x, lowpass, device=device)
 
-    mu, std = x.mean(), _std(x)
-    x = (x - mu) / std
-    if cutoff > 0:
-        x = torch.where((x < -cutoff) | (x > cutoff), 0.0, x)
+        mu, std = x.mean(), _std(x)
+        x = (x - mu) / std
+        if cutoff > 0:
+            x = torch.where((x < -cutoff) | (x > cutoff), 0.0, x)
 
-    if gaus is not None:
-        x = apply_kernel(x, gaussian_denoise_kernel(gaus), device=device)
-    elif inv_gaus is not None:
-        x = apply_kernel(x, inv_gaussian_kernel(inv_gaus), device=device)
-    elif deconvolve:
-        x = correct_spatial_covariance(x, patch=deconv_patch, device=device)
+        if gaus is not None:
+            x = apply_kernel(x, gaussian_denoise_kernel(gaus), device=device)
+        elif inv_gaus is not None:
+            x = apply_kernel(x, inv_gaussian_kernel(inv_gaus), device=device)
+        elif deconvolve:
+            x = correct_spatial_covariance(x, patch=deconv_patch, device=device)
 
-    out = sum(model.denoise(x, patch_size=patch_size, padding=padding)
-              for model in models) / len(models)
-
-    if normalize:
-        out = (out - out.mean()) / _std(out)
-    else:
-        out = std * out + mu
-    return out.cpu().numpy()
+    with stage("denoise/unet", device=device):
+        out = sum(model.denoise(x, patch_size=patch_size, padding=padding)
+                  for model in models) / len(models)
+        if normalize:
+            out = (out - out.mean()) / _std(out)
+        else:
+            out = std * out + mu
+    with stage("denoise/fetch"):
+        return out.cpu().numpy()
 
 
 def denoise_stream(micrographs: List[str], output_path: str, format: str = "mrc",

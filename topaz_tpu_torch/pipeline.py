@@ -54,7 +54,7 @@ from topaz_tpu_torch.parallel.mesh import (Mesh, make_halo_dense_scorer, replica
                                            split_apply)
 from topaz_tpu_torch.utils.batching import (fetch_async, iterate_prefetched, load_batches,
                                              round_bucket, valid_mask)
-from topaz_tpu_torch.utils.profiling import stage, sync_for_timing
+from topaz_tpu_torch.utils.profiling import stage
 from topaz_tpu_torch.utils.retry import retry_transient
 
 # the port runs float32 convolutions with TF32 off only (device.exact_numerics)
@@ -171,58 +171,65 @@ class MicrographPipeline:
             scorers = [lambda x, h=h: torch.stack([h(xi) for xi in x]) for h in halo]
 
         @torch.inference_mode()
-        def run(i: int, padded: torch.Tensor, valid: torch.Tensor):
+        def run(i: int, padded: torch.Tensor, valid: torch.Tensor, batch: Optional[int]):
             # padded (B, bh, bw) after downsampling, valid (B, 2)
             denoiser = denoisers[i]
             B = padded.shape[0]
-            mask = valid_mask((bh, bw), valid)
-            maskf = mask.to(padded.dtype)
-            # dead-frame guard (a documented divergence: the reference's
-            # unguarded std division NaNs the frame, topaz/stats.py:36-83):
-            # a constant frame gives 0 picks and passes through the denoise
-            # arm unchanged, and the flag goes back for a warning
-            nv = torch.sum(maskf, dim=(1, 2), keepdim=True)
-            m2 = torch.sum(padded * maskf, dim=(1, 2), keepdim=True) / nv
-            v2 = torch.sum(maskf * (padded - m2) ** 2, dim=(1, 2), keepdim=True) / nv
-            degen = (v2 <= 0.0)[:, 0, 0]
-            if normalize:
-                xf, wf = padded.reshape(B, -1), maskf.reshape(B, -1)
-                if bins > 0:
-                    mu, std, *_ = norm_fit_hist(xf, bins=bins, w=wf)
+            dev = padded.device
+            with stage("pipeline/normalize", batch, dev):
+                mask = valid_mask((bh, bw), valid)
+                maskf = mask.to(padded.dtype)
+                # dead-frame guard (a documented divergence: the reference's
+                # unguarded std division NaNs the frame, topaz/stats.py:36-83):
+                # a constant frame gives 0 picks and passes through the denoise
+                # arm unchanged, and the flag goes back for a warning
+                nv = torch.sum(maskf, dim=(1, 2), keepdim=True)
+                m2 = torch.sum(padded * maskf, dim=(1, 2), keepdim=True) / nv
+                v2 = torch.sum(maskf * (padded - m2) ** 2, dim=(1, 2), keepdim=True) / nv
+                degen = (v2 <= 0.0)[:, 0, 0]
+                if normalize:
+                    xf, wf = padded.reshape(B, -1), maskf.reshape(B, -1)
+                    if bins > 0:
+                        mu, std, *_ = norm_fit_hist(xf, bins=bins, w=wf)
+                    else:
+                        mu, std, *_ = norm_fit(xf, w=wf)
+                    # re-zero the padding so the picker sees a true image edge
+                    norms = (padded - mu[:, None, None]) / std[:, None, None] * maskf
                 else:
-                    mu, std, *_ = norm_fit(xf, w=wf)
-                # re-zero the padding so the picker sees a true image edge
-                norms = (padded - mu[:, None, None]) / std[:, None, None] * maskf
-            else:
-                # extract's inputs are already normalized; padding is zero
-                norms = padded
-            scores = scorers[i](norms)
-            neg = torch.tensor(NEG, dtype=scores.dtype, device=scores.device)
-            scores = torch.where(mask & ~degen[:, None, None], scores, neg)
-            vals, coords, counts = nms_topk_batched(scores, r, t, k)
+                    # extract's inputs are already normalized; padding is zero
+                    norms = padded
+            with stage("pipeline/score", batch, dev):
+                scores = scorers[i](norms)
+            with stage("pipeline/nms", batch, dev):
+                neg = torch.tensor(NEG, dtype=scores.dtype, device=scores.device)
+                scores = torch.where(mask & ~degen[:, None, None], scores, neg)
+                vals, coords, counts = nms_topk_batched(scores, r, t, k)
             out = (vals, coords, counts, degen)
             if denoiser is not None:
-                # per-image masked statistics (the reference's _denoise,
-                # topaz/denoise.py:274-296) of the zero-padded bucket, as
-                # the JAX package runs it; s2 is guarded so that a dead
-                # frame passes through
-                s2 = torch.where(degen[:, None, None], torch.ones_like(v2), torch.sqrt(v2))
-                norm_in = ((padded - m2) / s2) * maskf
-                wdtype = next(denoiser.parameters()).dtype
-                # small buckets run the U-Net batched; large micrographs one
-                # at a time, so decoder temporaries are not B-fold
-                if B * bh * bw <= 8 * 1024 * 1024:
-                    y = denoiser(norm_in[:, None].to(wdtype))[:, 0].float()
-                else:
-                    y = torch.stack([denoiser(xi[None, None].to(wdtype))[0, 0].float()
-                                     for xi in norm_in])
-                den = y * s2 + m2
-                den = torch.where(degen[:, None, None], padded, den)
+                with stage("pipeline/denoise", batch, dev):
+                    # per-image masked statistics (the reference's _denoise,
+                    # topaz/denoise.py:274-296) of the zero-padded bucket, as
+                    # the JAX package runs it; s2 is guarded so that a dead
+                    # frame passes through
+                    s2 = torch.where(degen[:, None, None], torch.ones_like(v2), torch.sqrt(v2))
+                    norm_in = ((padded - m2) / s2) * maskf
+                    wdtype = next(denoiser.parameters()).dtype
+                    # small buckets run the U-Net batched; large micrographs one
+                    # at a time, so decoder temporaries are not B-fold
+                    if B * bh * bw <= 8 * 1024 * 1024:
+                        y = denoiser(norm_in[:, None].to(wdtype))[:, 0].float()
+                    else:
+                        y = torch.stack([denoiser(xi[None, None].to(wdtype))[0, 0].float()
+                                         for xi in norm_in])
+                    den = y * s2 + m2
+                    den = torch.where(degen[:, None, None], padded, den)
                 out = out + (den,)
             return out
 
-        def fn(padded: torch.Tensor, valid: torch.Tensor):
-            return split_apply(lambda i, dev, p, v: run(i, p, v), [r[0] for r in rows],
+        def fn(padded: torch.Tensor, valid: torch.Tensor, batch: Optional[int] = None):
+            """The batch's picks [and denoised images]; ``batch`` numbers
+            its spans."""
+            return split_apply(lambda i, dev, p, v: run(i, p, v, batch), [r[0] for r in rows],
                                padded, valid, out_device=self.device)
 
         return fn
@@ -250,27 +257,28 @@ class MicrographPipeline:
 
     # -- host-side driver ---------------------------------------------------
 
-    def _load_one(self, path: str, bucket: Tuple[int, int]):
+    def _load_one(self, path: str, bucket: Tuple[int, int], batch: Optional[int] = None):
         """Read one micrograph in a loader thread (host I/O and scipy only,
         no CUDA): the raw image when the device downsamples it, else the
         [downsampled] image embedded in its bucket."""
-        raw = np.asarray(load_image(path), dtype=np.float32)
-        if raw.ndim != 2:
-            # stacks, volumes, RGB: the shape probe reads only (ny, nx), so
-            # the embed and mask would silently be wrong
-            raise ValueError(
-                f"{path}: the batched micrograph pipeline handles single "
-                f"2D images (got shape {raw.shape}); denoise --stack "
-                f"handles movie stacks")
-        if self.scale > 1 and not self.host_downsample:
-            return np.array(raw)  # writable: torch.from_numpy takes it next
-        if self.scale > 1:
-            small = downsample_numpy(raw, self.scale, shape=self._ds_shape(raw.shape))
-        else:
-            small = raw
-        out = np.zeros(bucket, np.float32)
-        out[: small.shape[0], : small.shape[1]] = small
-        return out
+        with stage("pipeline/read", batch):
+            raw = np.asarray(load_image(path), dtype=np.float32)
+            if raw.ndim != 2:
+                # stacks, volumes, RGB: the shape probe reads only (ny, nx), so
+                # the embed and mask would silently be wrong
+                raise ValueError(
+                    f"{path}: the batched micrograph pipeline handles single "
+                    f"2D images (got shape {raw.shape}); denoise --stack "
+                    f"handles movie stacks")
+            if self.scale > 1 and not self.host_downsample:
+                return np.array(raw)  # writable: torch.from_numpy takes it next
+            if self.scale > 1:
+                small = downsample_numpy(raw, self.scale, shape=self._ds_shape(raw.shape))
+            else:
+                small = raw
+            out = np.zeros(bucket, np.float32)
+            out[: small.shape[0], : small.shape[1]] = small
+            return out
 
     def process(self, paths: Sequence[str], batch_size: Optional[int] = None,
                 prefetch: int = 2):
@@ -282,64 +290,82 @@ class MicrographPipeline:
         host FFTs) with the device's work."""
         batch_size = 1 if batch_size is None else max(1, int(batch_size))
 
-        # bucket by rounded post-downsample shape, keeping order within
-        buckets: Dict[Tuple[int, int], List[Tuple[str, Tuple[int, int]]]] = \
+        # bucket by rounded post-downsample shape, keeping order within; each
+        # item is (path, raw shape, the number of its batch in this call)
+        buckets: Dict[Tuple[int, int], List[Tuple[str, Tuple[int, int], int]]] = \
             defaultdict(list)
-        for p in paths:
-            try:
-                raw_shape = _image_shape(p)
-            except Exception:
-                if not self.skip_errors:
-                    raise
-                warnings.warn(f"{p}: unreadable header — skipped (--skip-errors)")
-                continue
-            buckets[self._bucket_for(self._ds_shape(raw_shape))].append((p, raw_shape))
+        with stage("pipeline/plan"):
+            for p in paths:
+                try:
+                    raw_shape = _image_shape(p)
+                except Exception:
+                    if not self.skip_errors:
+                        raise
+                    warnings.warn(f"{p}: unreadable header — skipped (--skip-errors)")
+                    continue
+                buckets[self._bucket_for(self._ds_shape(raw_shape))].append((p, raw_shape))
+            first = 0
+            for bucket, items in buckets.items():
+                buckets[bucket] = [(p, rs, first + j // batch_size)
+                                   for j, (p, rs) in enumerate(items)]
+                first += -(-len(items) // batch_size)
 
         def produce():
             for bucket, items in buckets.items():
                 for chunk, loaded in load_batches(
-                        items, lambda it, b=bucket: self._load_one(it[0], b),
+                        items, lambda it, b=bucket: self._load_one(it[0], b, it[2]),
                         batch_size, batch_size * (prefetch + 1),
                         num_workers=self.num_workers, skip_errors=self.skip_errors,
                         label=lambda it: it[0]):
                     n_real = len(chunk)
                     valid = np.array(
-                        [self._ds_shape(rs) for _, rs in chunk]
+                        [self._ds_shape(it[1]) for it in chunk]
                         + [self._ds_shape(chunk[-1][1])] * (batch_size - n_real),
                         dtype=np.int64)
                     if self.scale > 1 and not self.host_downsample:
                         payload = loaded  # raw images; the device downsamples
                     else:
                         payload = np.stack(loaded)
-                    yield bucket, chunk, payload, valid
+                    yield bucket, chunk[0][2], chunk, payload, valid
 
         device = self.device
         # closed when this generator is, or raises: the loader threads stop
         batches = iterate_prefetched(produce, maxsize=max(1, prefetch))
         try:
-            for bucket, chunk, payload, valid in batches:
+            while True:
+                with stage("pipeline/wait") as span:
+                    item = next(batches, None)
+                    if item is not None:
+                        span.batch = item[1]
+                if item is None:
+                    break
+                bucket, seq, chunk, payload, valid = item
                 fn = self._fn_for(bucket)
 
                 def dispatch_and_fetch():
-                    with stage(f"pipeline/batch{bucket}"):
-                        if isinstance(payload, list):
-                            arr = torch.stack([
-                                self._prep_for(r.shape, bucket)(torch.from_numpy(r).to(device))
-                                for r in payload])
-                        else:
+                    if isinstance(payload, list):
+                        images = []
+                        for r in payload:
+                            with stage("pipeline/upload", seq, device):
+                                x = torch.from_numpy(r).to(device)
+                            with stage("pipeline/prep", seq, device):
+                                images.append(self._prep_for(r.shape, bucket)(x))
+                            del x  # one raw frame on the card at a time
+                        arr = torch.stack(images)
+                        del images  # and the batch once
+                    else:
+                        with stage("pipeline/upload", seq, device):
                             arr = torch.from_numpy(payload).to(device)
-                        out = fn(arr, torch.from_numpy(valid).to(device))
-                        # the stage's time includes the device's when timings
-                        # or a profile are asked for
-                        sync_for_timing(out)
+                    out = fn(arr, torch.from_numpy(valid).to(device), batch=seq)
                     # the copy-out is inside the retried call: a dropped
                     # transport can surface there
-                    return fetch_async(*out[:4], out[4] if len(out) > 4 else None)
+                    with stage("pipeline/fetch", seq):
+                        return fetch_async(*out[:4], out[4] if len(out) > 4 else None)
 
                 scores, coords, counts, degen, dens = retry_transient(
                     dispatch_and_fetch, retries=self.retries,
                     what=f"pipeline batch {bucket}")
-                for i, (path, _raw_shape) in enumerate(chunk):
+                for i, (path, _raw_shape, _batch) in enumerate(chunk):
                     if degen[i]:
                         warnings.warn(
                             f"{path}: constant image (std=0) — no picks emitted and "
