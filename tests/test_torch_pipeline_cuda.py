@@ -1,5 +1,6 @@
 """The batched pipeline on the card against the same pipeline on the CPU,
-and ``fetch_async``'s copies out of the card.
+``fetch_async``'s copies out of the card, and the pinned host frames the
+raw micrographs are read into and uploaded from.
 
 This file imports no JAX, so that it runs on a machine with a card and no
 JAX: ``python -m pytest --noconftest -p no:cacheprovider
@@ -15,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from topaz_tpu_torch import pipeline as tpipeline
 from topaz_tpu_torch.io import mrc
 from topaz_tpu_torch.pipeline import MicrographPipeline
+from topaz_tpu_torch.utils import frames
 from topaz_tpu_torch.utils.batching import fetch_async
 
 RADIUS, THRESHOLD = 6, 1.0
@@ -86,3 +89,62 @@ def test_fetch_async_returns_the_right_bytes(cuda_device):
         np.testing.assert_array_equal(got[2], b.cpu().numpy())
         np.testing.assert_array_equal(got[3], c.cpu().numpy())
         np.testing.assert_array_equal(got[4], np.arange(3))
+
+
+@pytest.mark.cuda
+def test_raw_frames_upload_from_pinned_frames_with_the_pageable_answers(cuda_device, tmp_path,
+                                                                        monkeypatch):
+    """At scale 4 the raw frames are read into pinned pool frames and
+    uploaded from them; the answers are bit-equal to those of the same
+    pipeline reading into pageable arrays, as before the pool."""
+    rng = np.random.default_rng(1)
+    paths = []
+    for i, (h, w) in enumerate([(1024, 1024)] * 3 + [(1023, 1440)] * 2):
+        paths.append(str(tmp_path / f"m{i}.mrc"))
+        mrc.write(paths[-1], rng.normal(size=(h, w)).astype(np.float32))
+    pipe = MicrographPipeline(model="resnet8_u32", denoise_model="fcnn", scale=4, radius=RADIUS,
+                              threshold=THRESHOLD, num_workers=2, device=cuda_device)
+    pinned, upload = [], tpipeline._upload
+
+    def spy(r, device, events):
+        pinned.append(isinstance(r, torch.Tensor) and r.is_pinned())
+        return upload(r, device, events)
+
+    monkeypatch.setattr(tpipeline, "_upload", spy)
+    pooled = list(pipe.process(paths, batch_size=2))
+    assert pinned and all(pinned)
+    assert pipe._frames.idle() == pipe._frames.frames == len(paths)
+    with monkeypatch.context() as m:
+        m.setattr(frames.FramePool, "_take", lambda pool, shape: None)
+        pinned.clear()
+        pageable = list(pipe.process(paths, batch_size=2))
+        assert pinned and not any(pinned)
+    assert [r[0] for r in pooled] == [r[0] for r in pageable] == paths
+    for a, b in zip(pooled, pageable):
+        for x, y in zip(a[1:], b[1:]):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_a_pinned_frame_is_not_reused_before_its_upload_has_finished(cuda_device):
+    """A frame given back behind a non-blocking upload still queued on the
+    stream is handed out again only once the upload's event has completed;
+    the upload then holds the frame's values."""
+    pool = frames.FramePool(pinned=True)
+    lease = pool.lease(4)
+    frame = lease.take((4096, 4096))
+    assert frame.is_pinned()
+    frame.numpy()[...] = np.arange(4096, dtype=np.float32)
+    a = torch.randn((8192, 8192), device=cuda_device)
+    for _ in range(8):
+        a = a @ a  # the upload waits behind these on the stream
+    events = {}
+    x = tpipeline._upload(frame, cuda_device, events)
+    lease.give(frame, events[id(frame)])
+    assert not events[id(frame)].query()
+    other = lease.take((4096, 4096))
+    assert other is not None and other.data_ptr() != frame.data_ptr()
+    torch.cuda.synchronize(cuda_device)
+    assert lease.take((4096, 4096)) is frame
+    np.testing.assert_array_equal(x.cpu().numpy(), np.broadcast_to(
+        np.arange(4096, dtype=np.float32), (4096, 4096)))

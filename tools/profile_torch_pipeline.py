@@ -50,16 +50,24 @@ def _sync_clock(fn):
 
 
 def loaders_alone(pipe, paths, batch_size):
-    """Seconds the loader threads take for every file, no device work."""
+    """Seconds the loader threads take for every file, no device work. With
+    device prep they read into the pipeline's frame pool, as ``process``
+    does, and each batch's frames go back once it is loaded (the first call
+    allocates the frames)."""
     from topaz_tpu_torch.pipeline import _image_shape
     from topaz_tpu_torch.utils.batching import window_batches
+    from topaz_tpu_torch.utils.frames import in_flight
 
     items = [(p, _image_shape(p)) for p in paths]
+    frames = pipe._frames.lease(in_flight(batch_size, 2))
     t0 = time.perf_counter()
-    for _ in window_batches(
-            items, lambda it: pipe._load_one(it[0], pipe._bucket_for(pipe._ds_shape(it[1]))),
+    for _, _, loaded in window_batches(
+            items, lambda it: pipe._load_one(it[0], pipe._bucket_for(pipe._ds_shape(it[1])),
+                                             frames=frames),
             batch_size, batch_size * 3, num_workers=pipe.num_workers):
-        pass
+        for x in loaded:
+            frames.give(x)  # host prep's arrays are not the pool's: left alone
+    frames.close()
     return time.perf_counter() - t0
 
 

@@ -198,6 +198,36 @@ def read(path: str):
         return parse(f.read())
 
 
+def read_header(f: BinaryIO) -> MrcHeader:
+    """The header at the start of the open file ``f``."""
+    head = f.read(HEADER_SIZE)
+    if len(head) < HEADER_SIZE:
+        raise ValueError(f"{getattr(f, 'name', f)}: {len(head)} bytes, "
+                         f"shorter than an MRC header ({HEADER_SIZE})")
+    return parse_header(head)
+
+
+def readinto(f: BinaryIO, header: MrcHeader, out: np.ndarray) -> np.ndarray:
+    """Read the data of the open MRC file ``f`` whose header is ``header``
+    straight into ``out``, past the extended header, with no intermediate
+    copy: ``out`` is C-contiguous, of the header's dtype and holds exactly
+    nz * ny * nx values. Raises ValueError on a file shorter than that."""
+    n = int(header.nz) * int(header.ny) * int(header.nx) * header.dtype.itemsize
+    if out.dtype != header.dtype or out.nbytes != n or not out.flags.c_contiguous:
+        raise ValueError(f"readinto: {out.dtype} {out.shape} cannot hold the data of "
+                         f"{header.dtype} {header.shape}")
+    view = memoryview(out.reshape(-1).view(np.uint8))
+    f.seek(header.data_offset)
+    got = 0
+    while got < n:
+        k = f.readinto(view[got:])
+        if not k:
+            raise ValueError(f"{getattr(f, 'name', f)}: MRC data ends after {got} of "
+                             f"{n} bytes")
+        got += k
+    return out
+
+
 def write(
     f: Union[str, BinaryIO],
     array: np.ndarray,

@@ -23,7 +23,9 @@ bucket. The score map of a batch stays on the device for the NMS rounds,
 whose disk max-filter is the CUDA kernel of ops/disk_max.py at (B, bh, bw);
 only the pick tables (and the denoised images) come back, with one
 synchronisation a batch. Loader threads read files (and run the host FFT)
-while the device works.
+while the device works; a raw frame is read straight into a reused host
+frame (pinned on a CUDA device, utils/frames.py), so its upload is a copy
+that does not hold the host.
 
 Over a ``mesh`` (parallel/mesh.py) each batch is split over the data axis,
 each data row running the whole batch function on its share with its own
@@ -44,7 +46,7 @@ import torch
 
 from topaz_tpu_torch.device import resolve_device
 from topaz_tpu_torch.io.image import load_image
-from topaz_tpu_torch.io.mrc import parse_header
+from topaz_tpu_torch.io.mrc import parse_header, read_header, readinto
 from topaz_tpu_torch.models.denoise_factory import load_denoiser
 from topaz_tpu_torch.models.factory import load_picker
 from topaz_tpu_torch.ops.fourier import downsample, downsample_numpy
@@ -54,6 +56,7 @@ from topaz_tpu_torch.parallel.mesh import (Mesh, make_halo_dense_scorer, replica
                                            split_apply)
 from topaz_tpu_torch.utils.batching import (fetch_async, iterate_prefetched, load_batches,
                                              round_bucket, valid_mask)
+from topaz_tpu_torch.utils.frames import FramePool, Lease, count_read, in_flight
 from topaz_tpu_torch.utils.profiling import stage
 from topaz_tpu_torch.utils.retry import retry_transient
 
@@ -121,6 +124,8 @@ class MicrographPipeline:
         self._copies: Dict = {}    # the models' copies on the mesh's other rows
         self._fns: Dict = {}       # bucket -> main batch function
         self._prep_fns: Dict = {}  # (raw shape, bucket) -> downsample + embed
+        # the raw frames the loaders read into, kept across process() calls
+        self._frames = FramePool(pinned=self.device.type == "cuda")
 
     @property
     def num_programs(self) -> Dict[str, int]:
@@ -257,21 +262,18 @@ class MicrographPipeline:
 
     # -- host-side driver ---------------------------------------------------
 
-    def _load_one(self, path: str, bucket: Tuple[int, int], batch: Optional[int] = None):
-        """Read one micrograph in a loader thread (host I/O and scipy only,
-        no CUDA): the raw image when the device downsamples it, else the
-        [downsampled] image embedded in its bucket."""
+    def _load_one(self, path: str, bucket: Tuple[int, int], batch: Optional[int] = None,
+                  frames: Optional[Lease] = None):
+        """Read one micrograph in a loader thread (host I/O and scipy; no
+        device work): the raw image when the device downsamples it, else the
+        [downsampled] image embedded in its bucket. The raw image comes in a
+        frame taken from ``frames`` where one is free: a one-section float32
+        MRC is read straight into it, any other image loaded and copied in
+        once. Without a frame it is a writable pageable array."""
         with stage("pipeline/read", batch):
-            raw = np.asarray(load_image(path), dtype=np.float32)
-            if raw.ndim != 2:
-                # stacks, volumes, RGB: the shape probe reads only (ny, nx), so
-                # the embed and mask would silently be wrong
-                raise ValueError(
-                    f"{path}: the batched micrograph pipeline handles single "
-                    f"2D images (got shape {raw.shape}); denoise --stack "
-                    f"handles movie stacks")
             if self.scale > 1 and not self.host_downsample:
-                return np.array(raw)  # writable: torch.from_numpy takes it next
+                return self._read_raw(path, frames)
+            raw = _load_2d(path)
             if self.scale > 1:
                 small = downsample_numpy(raw, self.scale, shape=self._ds_shape(raw.shape))
             else:
@@ -279,6 +281,30 @@ class MicrographPipeline:
             out = np.zeros(bucket, np.float32)
             out[: small.shape[0], : small.shape[1]] = small
             return out
+
+    @staticmethod
+    def _read_raw(path: str, frames: Optional[Lease]):
+        if frames is not None and os.path.splitext(path)[1].lower() in (".mrc", ".mrcs"):
+            with open(path, "rb", buffering=0) as f:
+                header = read_header(f)
+                frame = None
+                if int(header.mode) == 2 and int(header.nz) == 1:
+                    frame = frames.take((int(header.ny), int(header.nx)))
+                if frame is not None:
+                    try:
+                        readinto(f, header, frame.numpy())
+                    except BaseException:
+                        frames.give(frame)
+                        raise
+                    count_read(direct=True)
+                    return frame
+        raw = _load_2d(path)
+        count_read(direct=False)
+        frame = frames.take(raw.shape) if frames is not None else None
+        if frame is None:
+            return np.array(raw)  # writable: torch.from_numpy takes it next
+        frame.numpy()[...] = raw
+        return frame
 
     def process(self, paths: Sequence[str], batch_size: Optional[int] = None,
                 prefetch: int = 2):
@@ -310,10 +336,16 @@ class MicrographPipeline:
                                    for j, (p, rs) in enumerate(items)]
                 first += -(-len(items) // batch_size)
 
+        # the raw route's frames come from the pool and go back after their
+        # uploads; the host-prep route stacks its bucket batches as before
+        frames = None
+        if self.scale > 1 and not self.host_downsample:
+            frames = self._frames.lease(in_flight(batch_size, prefetch))
+
         def produce():
             for bucket, items in buckets.items():
                 for chunk, loaded in load_batches(
-                        items, lambda it, b=bucket: self._load_one(it[0], b, it[2]),
+                        items, lambda it, b=bucket: self._load_one(it[0], b, it[2], frames),
                         batch_size, batch_size * (prefetch + 1),
                         num_workers=self.num_workers, skip_errors=self.skip_errors,
                         label=lambda it: it[0]):
@@ -341,13 +373,14 @@ class MicrographPipeline:
                     break
                 bucket, seq, chunk, payload, valid = item
                 fn = self._fn_for(bucket)
+                events: Dict = {}  # a frame's id -> the event behind its last upload
 
                 def dispatch_and_fetch():
                     if isinstance(payload, list):
                         images = []
                         for r in payload:
                             with stage("pipeline/upload", seq, device):
-                                x = torch.from_numpy(r).to(device)
+                                x = _upload(r, device, events)
                             with stage("pipeline/prep", seq, device):
                                 images.append(self._prep_for(r.shape, bucket)(x))
                             del x  # one raw frame on the card at a time
@@ -362,9 +395,16 @@ class MicrographPipeline:
                     with stage("pipeline/fetch", seq):
                         return fetch_async(*out[:4], out[4] if len(out) > 4 else None)
 
-                scores, coords, counts, degen, dens = retry_transient(
-                    dispatch_and_fetch, retries=self.retries,
-                    what=f"pipeline batch {bucket}")
+                try:
+                    scores, coords, counts, degen, dens = retry_transient(
+                        dispatch_and_fetch, retries=self.retries,
+                        what=f"pipeline batch {bucket}")
+                finally:
+                    # each frame once, behind its last upload: a partial
+                    # batch repeats its last frame
+                    for r in payload if frames is not None else ():
+                        if isinstance(r, torch.Tensor):
+                            frames.give(r, events.get(id(r)))
                 for i, (path, _raw_shape, _batch) in enumerate(chunk):
                     if degen[i]:
                         warnings.warn(
@@ -379,6 +419,34 @@ class MicrographPipeline:
                     yield result
         finally:
             batches.close()
+            if frames is not None:
+                frames.close()
+
+
+def _upload(r, device, events: Dict):
+    """A raw frame on ``device``. A pool frame is copied without holding
+    the host (a DMA from pinned memory on a CUDA device), and the event
+    recorded behind the copy goes into ``events`` under the frame's id; a
+    pageable array is copied as it stands."""
+    if not isinstance(r, torch.Tensor):
+        return torch.from_numpy(r).to(device)
+    x = r.to(device, non_blocking=True)
+    if x.is_cuda:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(x.device))
+        events[id(r)] = event
+    return x
+
+
+def _load_2d(path: str) -> np.ndarray:
+    raw = np.asarray(load_image(path), dtype=np.float32)
+    if raw.ndim != 2:
+        # stacks, volumes, RGB: the shape probe reads only (ny, nx), so the
+        # embed and mask would silently be wrong
+        raise ValueError(
+            f"{path}: the batched micrograph pipeline handles single 2D images "
+            f"(got shape {raw.shape}); denoise --stack handles movie stacks")
+    return raw
 
 
 def _image_shape(path: str) -> Tuple[int, int]:
