@@ -16,7 +16,9 @@ Tomograms (``Denoise3D``) take the volume's statistics, then each padded
 patch's own. Up to ``_DEVICE_RESIDENT_CAP`` bytes the volume is uploaded
 and zero-padded once, every patch is cut and written back on the device
 and the result is fetched once; larger volumes, or a resident run that
-exhausts device memory, stream batches of host-cut patches instead.
+exhausts device memory, stream batches of host-cut patches instead. Each
+route records ``denoise3d/*`` stage spans and counts its work in this
+module's counters (``patches_denoised`` and the rest).
 Training (``train_denoiser``) runs an eager autograd step a batch and keeps
 the losses on the device until the epoch ends.
 
@@ -61,6 +63,28 @@ from topaz_tpu_torch.ops.filters import (
 )
 from topaz_tpu_torch.train.trainer import make_optimizer
 from topaz_tpu_torch.utils.profiling import stage
+
+
+# Denoise3D's work in this process, as utils/frames counts its reads:
+# patches denoised, voxels through the network (padded patches, a streaming
+# batch's fill copies, whole volumes), voxels of output, and patched volumes
+# by route; callers may reset each to 0
+patches_denoised = 0
+network_voxels = 0
+output_voxels = 0
+resident_volumes = 0
+streaming_volumes = 0
+
+
+def _count_volume(route: Optional[str], patches: int, network: int, output: int) -> None:
+    global patches_denoised, network_voxels, output_voxels, resident_volumes, streaming_volumes
+    patches_denoised += patches
+    network_voxels += network
+    output_voxels += output
+    if route == "resident":
+        resident_volumes += 1
+    elif route == "streaming":
+        streaming_volumes += 1
 
 
 def _check_min_extent(meta, extents, what: str, flag: str):
@@ -345,20 +369,31 @@ class Denoise3D(Denoise):
         return None
 
     def _resident_run(self, tomo, s, p, ext, origins) -> np.ndarray:
+        """The resident route's work, in stage spans: ``denoise3d/upload``
+        (the volume, its statistics and its zero-padded copy), one
+        ``denoise3d/patch`` a patch (cut, the volume's normalisation, the
+        centre written back) around its ``denoise3d/unet`` forward, and
+        ``denoise3d/fetch``."""
         d = s + 2 * p
         shape = tomo.shape
         pad = []
         for e, n in zip(reversed(ext), reversed(shape)):  # F.pad lists the last axis first
             pad += [p, p + e - n]
-        vol = as_device_tensor(tomo, self.device)
-        mu, std = vol.mean(), _std(vol)
-        volp = F.pad(vol, pad)  # zero fill, as the streaming route's patches
+        with stage("denoise3d/upload", device=self.device):
+            vol = as_device_tensor(tomo, self.device)
+            mu, std = vol.mean(), _std(vol)
+            volp = F.pad(vol, pad)  # zero fill, as the streaming route's patches
         out = torch.empty(ext, device=self.device)
         for i, j, k in origins:
-            xn = (volp[i:i + d, j:j + d, k:k + d] - mu) / std
-            y = self._normalized_forward(xn[None])[0]
-            out[i:i + s, j:j + s, k:k + s] = y[p:p + s, p:p + s, p:p + s] * std + mu
-        return out[:shape[0], :shape[1], :shape[2]].cpu().numpy()
+            with stage("denoise3d/patch", device=self.device):
+                xn = (volp[i:i + d, j:j + d, k:k + d] - mu) / std
+                with stage("denoise3d/unet", device=self.device):
+                    y = self._normalized_forward(xn[None])[0]
+                out[i:i + s, j:j + s, k:k + s] = y[p:p + s, p:p + s, p:p + s] * std + mu
+        with stage("denoise3d/fetch"):
+            out = out[:shape[0], :shape[1], :shape[2]].cpu().numpy()
+        _count_volume("resident", len(origins), len(origins) * d ** 3, out.size)
+        return out
 
     def _denoise_streaming(self, tomo: np.ndarray, patch_size: int, padding: int,
                            batch_size: int, volume_num: int, total_volumes: int,
@@ -368,7 +403,10 @@ class Denoise3D(Denoise):
         denoised ``batch_size`` at a time with their own statistics (the last
         batch filled with copies of its last patch), centres stitched on the
         host. With several devices the batch grows to a multiple of their
-        count and is split over them."""
+        count and is split over them. A batch's stage spans:
+        ``denoise3d/extract`` (cut and normalised on the host),
+        ``denoise3d/upload``, ``denoise3d/unet``, ``denoise3d/fetch`` and
+        ``denoise3d/stitch``."""
         mesh = data_mesh_for(self.devices)
         if mesh is not None:
             n_data = mesh.shape["data"]
@@ -393,22 +431,32 @@ class Denoise3D(Denoise):
                    for pi in range(grid[0]) for pj in range(grid[1]) for pk in range(grid[2])]
         for start in range(0, len(origins), batch_size):
             chunk = origins[start:start + batch_size]
-            xs = [extract_patch(*o) for o in chunk]
-            while len(xs) < batch_size:
-                xs.append(xs[-1])
-            xn = (np.stack(xs) - mu) / std
-            ys = self._sharded_forward(torch.from_numpy(xn).to(self.device)).cpu().numpy()
-            ys = ys * std + mu
-            for (i, j, k), y in zip(chunk, ys):
-                patch = denoised[i:i + patch_size, j:j + patch_size, k:k + patch_size]
-                pz, py, px = patch.shape
-                patch[...] = y[padding:padding + pz, padding:padding + py, padding:padding + px]
-                count += 1
-                if verbose:
-                    print(f"# [{volume_num}/{total_volumes}] {round(count * 100 / total)}%",
-                          file=sys.stderr, end="\r")
+            with stage("denoise3d/extract"):
+                xs = [extract_patch(*o) for o in chunk]
+                while len(xs) < batch_size:
+                    xs.append(xs[-1])
+                xn = (np.stack(xs) - mu) / std
+            with stage("denoise3d/upload", device=self.device):
+                xb = torch.from_numpy(xn).to(self.device)
+            with stage("denoise3d/unet", device=self.device):
+                yb = self._sharded_forward(xb)
+            with stage("denoise3d/fetch"):
+                ys = yb.cpu().numpy()
+            with stage("denoise3d/stitch"):
+                ys = ys * std + mu
+                for (i, j, k), y in zip(chunk, ys):
+                    patch = denoised[i:i + patch_size, j:j + patch_size, k:k + patch_size]
+                    pz, py, px = patch.shape
+                    patch[...] = y[padding:padding + pz, padding:padding + py,
+                                   padding:padding + px]
+                    count += 1
+                    if verbose:
+                        print(f"# [{volume_num}/{total_volumes}] {round(count * 100 / total)}%",
+                              file=sys.stderr, end="\r")
         if verbose:
             print(" " * 100, file=sys.stderr, end="\r")
+        batches = -(-len(origins) // batch_size)
+        _count_volume("streaming", len(origins), batches * batch_size * d ** 3, denoised.size)
         return denoised
 
     def denoise(self, tomo, patch_size: int = 96, padding: int = 48, batch_size: int = 1,
@@ -425,7 +473,14 @@ class Denoise3D(Denoise):
                 print(f"# auto patch size {patch_size} for volume {tuple(tomo.shape)} "
                       f"(padding {padding})", file=sys.stderr)
         if patch_size < 1:
-            return self._apply(as_device_tensor(tomo, self.device)).cpu().numpy()
+            with stage("denoise3d/upload", device=self.device):
+                x = as_device_tensor(tomo, self.device)
+            with stage("denoise3d/unet", device=self.device):
+                y = self._apply(x)
+            with stage("denoise3d/fetch"):
+                out = y.cpu().numpy()
+            _count_volume(None, 0, tomo.size, out.size)
+            return out
         _check_min_extent(self.meta, (patch_size + 2 * padding,) * 3,
                           "inference patches", "-s/--patch-size")
         if device_resident is not False:
