@@ -1,8 +1,10 @@
 """The port's stage spans: what ``MicrographPipeline.process`` and
 ``denoise_image`` record (names, counts, threads, enclosing stages and
-batch numbers), the bounded record behind ``utils/profiling``, the
-``TOPAZ_TIMINGS`` printout and the ``TOPAZ_PROFILE`` trace of a CLI
-command. Tiny micrographs on the CPU; no JAX."""
+batch numbers), ``denoise_image``'s and the resident ``Denoise3D``'s with
+their uploads staged as to a card, the bounded record behind
+``utils/profiling``, the ``TOPAZ_TIMINGS`` printout and the
+``TOPAZ_PROFILE`` trace of a CLI command. Tiny micrographs on the CPU; no
+JAX."""
 
 import json
 import threading
@@ -11,11 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from topaz_tpu_torch import device
 from topaz_tpu_torch.cli.main import main
-from topaz_tpu_torch.denoise import Denoise, denoise_image
+from topaz_tpu_torch.denoise import Denoise, Denoise3D, denoise_image
 from topaz_tpu_torch.io import mrc
 from topaz_tpu_torch.pipeline import MicrographPipeline
 from topaz_tpu_torch.utils import profiling
+from torch_staging import cpu_staging  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 # two buckets at scale 2: 4 micrographs of (64, 64), 3 of (64, 96) -> (64, 128)
@@ -114,6 +118,44 @@ def test_denoise_image_records_its_four_spans(clean):
     order = [s[0] for s in spans]
     assert all(a.end_ns <= b.start_ns for a, b in zip(order, order[1:]))
     assert all(s.parent is None and s.batch is None for s in order)
+
+
+def _staged(fn):
+    before = device.staged_uploads
+    out = fn()
+    return out, device.staged_uploads - before
+
+
+def test_denoise_image_spans_hold_on_the_staged_route(clean, cpu_staging):
+    """The micrograph goes through the staging ring inside ``denoise/upload``
+    (numpy arrays routed as to a card); the four spans and the output stand
+    as on the plain route."""
+    model = Denoise("unet-small", device="cpu")
+    mic = np.random.default_rng(2).normal(size=(520, 512)).astype(np.float32)  # > 1 MiB
+    out, staged = _staged(lambda: denoise_image(mic, [model]))
+    assert staged == 1
+    names = ["denoise/upload", "denoise/filter", "denoise/unet", "denoise/fetch"]
+    order = [profiling.records(n) for n in names]
+    assert [len(s) for s in order] == [1, 1, 1, 1]
+    order = [s[0] for s in order]
+    assert all(a.end_ns <= b.start_ns for a, b in zip(order, order[1:]))
+    plain, staged = _staged(lambda: denoise_image(torch.from_numpy(mic), [model]))
+    assert staged == 0
+    np.testing.assert_array_equal(out, plain)
+
+
+def test_resident_denoise3d_spans_hold_on_the_staged_route(clean, cpu_staging):
+    """The resident route's volume goes through the staging ring inside
+    ``denoise3d/upload``, its output comes back inside ``denoise3d/fetch``."""
+    model = Denoise3D.from_arch("unet-small", nf=4, base_width=3, device="cpu", seed=1)
+    vol = np.random.default_rng(3).normal(size=(64, 64, 64)).astype(np.float32)  # 1 MiB
+    out, staged = _staged(lambda: model.denoise(vol, patch_size=64, padding=4,
+                                                verbose=False, device_resident=True))
+    assert staged == 1 and model.last_route == "resident" and out.shape == vol.shape
+    spans = {n: profiling.records(f"denoise3d/{n}") for n in ("upload", "patch", "fetch")}
+    assert {n: len(s) for n, s in spans.items()} == {"upload": 1, "patch": 1, "fetch": 1}
+    assert spans["upload"][0].end_ns <= spans["patch"][0].start_ns
+    assert spans["patch"][0].end_ns <= spans["fetch"][0].start_ns
 
 
 def test_the_record_is_bounded_and_its_totals_exact(clean, monkeypatch):

@@ -85,6 +85,7 @@ def main() -> None:
     print(f"# card: {card}")
 
     from topaz_tpu_torch.denoise import Denoise, denoise_image
+    from topaz_tpu_torch.device import as_device_tensor, to_host
     from topaz_tpu_torch.io import mrc
     from topaz_tpu_torch.io.image import load_image, save_image
     from topaz_tpu_torch.utils.synthetic import make_ctf_micrograph
@@ -101,8 +102,8 @@ def main() -> None:
         y, t_denoise = _clock(lambda: denoise_image(image, [model], patch_size=-1))
         _, t_write = _clock(lambda: save_image(y, os.path.join(work, "out.mrc"), header=header,
                                                extended_header=ext))
-        dev, t_up = _clock(lambda: torch.from_numpy(np.array(image, np.float32)).cuda())
-        _, t_down = _clock(lambda: dev.cpu().numpy())
+        dev, t_up = _clock(lambda: as_device_tensor(image, "cuda"))
+        _, t_down = _clock(lambda: to_host(dev))
     print(f"# warm denoise -s 0 at {args.size}^2, host clock: read {t_read:.4f} s, load "
           f"model {t_load:.4f} s, denoise_image {t_denoise:.4f} s (of it upload "
           f"{t_up:.4f} s, copy back {t_down:.4f} s), write {t_write:.4f} s")

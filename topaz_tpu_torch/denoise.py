@@ -5,12 +5,13 @@ topaz/commands/denoise.py, denoise3d.py).
 Each micrograph is uploaded once; the filter pipeline (lowpass ->
 normalize and pixel cutoff -> gaussian, inverse gaussian or whitening
 deconvolution -> model average -> rescale) and the model run on the
-device, and the denoised image is copied back once. Whole-image denoising
-normalizes by the image's own statistics. Patch denoising cuts every patch
-from the resident micrograph, normalizes each by its own statistics, as
-the reference does (topaz/denoise.py:299-324), and writes its centre into
-a device output. Standard deviations are population ones (ddof 0), as in
-numpy and JAX.
+device, and the denoised image is copied back once; both copies go through
+pinned host memory (``device.as_device_tensor``, ``device.to_host``).
+Whole-image denoising normalizes by the image's own statistics. Patch
+denoising cuts every patch from the resident micrograph, normalizes each
+by its own statistics, as the reference does (topaz/denoise.py:299-324),
+and writes its centre into a device output. Standard deviations are
+population ones (ddof 0), as in numpy and JAX.
 
 Tomograms (``Denoise3D``) take the volume's statistics, then each padded
 patch's own. Up to ``_DEVICE_RESIDENT_CAP`` bytes the volume is uploaded
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from topaz_tpu_torch.device import as_device_tensor, resolve_device
+from topaz_tpu_torch.device import as_device_tensor, resolve_device, to_host
 from topaz_tpu_torch.io import mrc
 from topaz_tpu_torch.io.image import load_image, save_image
 from topaz_tpu_torch.models.denoise import min_input_size
@@ -391,7 +392,7 @@ class Denoise3D(Denoise):
                     y = self._normalized_forward(xn[None])[0]
                 out[i:i + s, j:j + s, k:k + s] = y[p:p + s, p:p + s, p:p + s] * std + mu
         with stage("denoise3d/fetch"):
-            out = out[:shape[0], :shape[1], :shape[2]].cpu().numpy()
+            out = to_host(out[:shape[0], :shape[1], :shape[2]].contiguous())
         _count_volume("resident", len(origins), len(origins) * d ** 3, out.size)
         return out
 
@@ -478,7 +479,7 @@ class Denoise3D(Denoise):
             with stage("denoise3d/unet", device=self.device):
                 y = self._apply(x)
             with stage("denoise3d/fetch"):
-                out = y.cpu().numpy()
+                out = to_host(y)
             _count_volume(None, 0, tomo.size, out.size)
             return out
         _check_min_extent(self.meta, (patch_size + 2 * padding,) * 3,
@@ -698,7 +699,7 @@ def denoise_image(mic, models: List[Denoise], lowpass: float = 1,
         else:
             out = std * out + mu
     with stage("denoise/fetch"):
-        return out.cpu().numpy()
+        return to_host(out)
 
 
 def denoise_stream(micrographs: List[str], output_path: str, format: str = "mrc",
