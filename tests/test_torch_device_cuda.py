@@ -1,7 +1,8 @@
-"""The card's copies through page-locked memory: ``device.as_device_tensor``
-staging host data through the card's ring of pinned slots, and
-``device.to_host`` fetching into pinned buffers, against the plain
-(pageable) copies they replace, bit for bit.
+"""The card's copies through page-locked memory: ``transfer.as_device_tensor``
+staging host data through the card's ring of pinned slots,
+``transfer.to_host`` fetching into pinned buffers, against the plain
+(pageable) copies they replace, bit for bit; and ``transfer.fetch_later``
+holding its tensor's values from before later work.
 
 This file imports no JAX, so that it runs on a machine with a card and no
 JAX: ``python -m pytest --noconftest -p no:cacheprovider
@@ -13,12 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from topaz_tpu_torch import denoise, device
+from topaz_tpu_torch import denoise, transfer
 from topaz_tpu_torch.denoise import Denoise, Denoise3D, denoise_image
 
 COUNTERS = ("staged_uploads", "staged_bytes", "plain_uploads", "pinned_fetches")
-N = device.STAGE_MIN_BYTES // 4   # the fewest values staged
-SLOT = device.SLOT_BYTES // 4     # values a chunk
+N = transfer.STAGE_MIN_BYTES // 4   # the fewest values staged
+SLOT = transfer.SLOT_BYTES // 4     # values a chunk
 
 
 @pytest.fixture
@@ -29,9 +30,9 @@ def card():
 
 
 def _counted(fn):
-    before = {c: getattr(device, c) for c in COUNTERS}
+    before = {c: getattr(transfer, c) for c in COUNTERS}
     out = fn()
-    return out, {c: getattr(device, c) - before[c] for c in COUNTERS}
+    return out, {c: getattr(transfer, c) - before[c] for c in COUNTERS}
 
 
 def _random(dtype, n, seed=0):
@@ -57,7 +58,7 @@ def _pageable(monkeypatch):
     """The copies as they were: a float32 host copy uploaded pageable, and
     ``.cpu().numpy()``."""
     with monkeypatch.context() as m:
-        m.setattr(device, "STAGE_MIN_BYTES", np.inf)
+        m.setattr(transfer, "STAGE_MIN_BYTES", np.inf)
         m.setattr(denoise, "to_host", lambda t: t.cpu().numpy())
         yield
 
@@ -68,14 +69,14 @@ def _pageable(monkeypatch):
 @pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int16, np.uint8])
 def test_a_staged_upload_is_bit_equal_to_the_plain_one(card, n, route, dtype):
     x = _random(dtype, n, seed=n)
-    got, counted = _counted(lambda: device.as_device_tensor(x, card))
+    got, counted = _counted(lambda: transfer.as_device_tensor(x, card))
     assert got.device == card and got.dtype == torch.float32
     assert _same_bits(got, _plain(x, card))
     staged = route == "staged"
     assert counted == {"staged_uploads": int(staged), "staged_bytes": 4 * n if staged else 0,
                        "plain_uploads": int(not staged), "pinned_fetches": 0}
     t = torch.from_numpy(x)  # a CPU tensor takes the same route
-    got, counted = _counted(lambda: device.as_device_tensor(t, card))
+    got, counted = _counted(lambda: transfer.as_device_tensor(t, card))
     assert _same_bits(got, _plain(x, card)) and counted["staged_uploads"] == int(staged)
 
 
@@ -86,7 +87,7 @@ def test_back_to_back_uploads_never_rewrite_a_slot_under_its_copy(card):
     copy ran would show in the outputs."""
     xs = [_random(np.float32, 4 * SLOT + 777 * k, seed=k) for k in range(3)]
     torch.cuda._sleep(200_000_000)
-    outs = [device.as_device_tensor(x, card) for x in xs]
+    outs = [transfer.as_device_tensor(x, card) for x in xs]
     for x, out in zip(xs, outs):
         assert _same_bits(out, torch.from_numpy(x))
 
@@ -130,13 +131,30 @@ def test_warm_copies_allocate_no_pinned_memory(card):
     (a block of the caching host allocator, back at the array's drop),
     uploads and fetches allocate no pinned memory."""
     x = _random(np.float64, 3 * SLOT + 5)
-    device.to_host(device.as_device_tensor(x, card))
-    ring = device.staging_ring(card)
-    slots = [s.data_ptr() for s in ring.slots]
+    transfer.to_host(transfer.as_device_tensor(x, card))
+    ring = transfer.staging_ring(card)
+    slots = [s.host.data_ptr() for s in ring.slots]
     before = torch.cuda.host_memory_stats()["num_host_alloc"]
     for _ in range(4):
-        out = device.to_host(device.as_device_tensor(x, card))
+        out = transfer.to_host(transfer.as_device_tensor(x, card))
         assert _same_bits(out, np.array(x, dtype=np.float32))
         del out
     assert torch.cuda.host_memory_stats()["num_host_alloc"] == before
-    assert device.staging_ring(card) is ring and [s.data_ptr() for s in ring.slots] == slots
+    assert transfer.staging_ring(card) is ring
+    assert [s.host.data_ptr() for s in ring.slots] == slots
+
+
+@pytest.mark.cuda
+def test_a_lagged_fetch_holds_the_values_from_before_later_kernels(card):
+    """``fetch_later`` returns while its copy is still queued behind ~0.1 s
+    of device work; a kernel queued after it that overwrites the tensor does
+    not reach the fetched values, and ``result`` waits for the copy."""
+    want = torch.arange(1 << 20, dtype=torch.float32)
+    t = want.to(card)
+    torch.cuda._sleep(200_000_000)
+    pending = transfer.fetch_later(t)
+    assert not torch.cuda.current_stream(card).query()  # the copy has not run
+    t.fill_(-1.0)
+    got = pending.result()
+    assert got.is_pinned() and _same_bits(got, want)
+    assert _same_bits(t, torch.full_like(want, -1.0))

@@ -1,6 +1,6 @@
 """The batched pipeline's raw frames: reading a micrograph straight into a
 reused host frame (``io/mrc.readinto``, ``MicrographPipeline._read_raw``)
-and the frames' lifetime in ``utils/frames.FramePool``.
+and the frames' lifetime in ``transfer.FramePool``.
 
 A one-section float32 MRC is read into a pool frame with no copy; every
 other image is loaded as before and copied in once; both give
@@ -17,11 +17,10 @@ import pytest
 import torch
 from PIL import Image
 
-from topaz_tpu_torch import pipeline as tpipeline
+from topaz_tpu_torch import transfer
 from topaz_tpu_torch.io import mrc
 from topaz_tpu_torch.io.image import load_image
 from topaz_tpu_torch.pipeline import MicrographPipeline
-from topaz_tpu_torch.utils import frames
 from torch_threads import one_torch_thread  # noqa: F401
 
 # the three cameras of benchmark/traffic/mixed_session.json, 16 times smaller
@@ -30,7 +29,7 @@ EXT = bytes(range(96))  # an extended header: the data starts 96 bytes later
 
 
 def _counts():
-    return frames.direct_reads, frames.fallback_reads, frames.allocations
+    return transfer.direct_reads, transfer.fallback_reads, transfer.allocations
 
 
 def _write_mode(path, x, dtype, ext=b""):
@@ -48,7 +47,7 @@ def test_a_float32_mrc_is_read_straight_into_a_frame(tmp_path, shape, ext):
     x = np.random.default_rng(sum(shape)).normal(size=shape).astype(np.float32)
     path = str(tmp_path / "m.mrc")
     mrc.write(path, x, extended_header=ext)
-    pool = frames.FramePool(pinned=False)
+    pool = transfer.FramePool(pinned=False)
     lease = pool.lease(4)
     before = _counts()
     got = MicrographPipeline._read_raw(path, lease)
@@ -78,7 +77,7 @@ def _fallback_files(tmp_path):
 @pytest.mark.parametrize("kind", ["mode1", "mode6", "mode12", "tiff", "npy"])
 def test_other_images_are_loaded_and_copied_into_a_frame(tmp_path, kind):
     path = _fallback_files(tmp_path)[kind]
-    pool = frames.FramePool(pinned=False)
+    pool = transfer.FramePool(pinned=False)
     before = _counts()
     got = MicrographPipeline._read_raw(path, pool.lease(4))
     assert isinstance(got, torch.Tensor)
@@ -91,7 +90,7 @@ def test_at_the_bound_a_read_falls_back_to_a_pageable_array(tmp_path):
     path = str(tmp_path / "m.mrc")
     x = np.random.default_rng(1).normal(size=(40, 50)).astype(np.float32)
     mrc.write(path, x)
-    pool = frames.FramePool(pinned=False)
+    pool = transfer.FramePool(pinned=False)
     lease = pool.lease(1)
     held = MicrographPipeline._read_raw(path, lease)
     before = _counts()
@@ -110,7 +109,7 @@ def test_a_truncated_file_raises_and_gives_its_frame_back(tmp_path, cut):
     data = open(whole, "rb").read()
     path = tmp_path / "short.mrc"
     path.write_bytes(data[:-100] if cut == "data" else data[:700])
-    pool = frames.FramePool(pinned=False)
+    pool = transfer.FramePool(pinned=False)
     with pytest.raises(ValueError, match="ends after|shorter than an MRC header"):
         MicrographPipeline._read_raw(str(path), pool.lease(4))
     assert pool.idle() == pool.frames == (1 if cut == "data" else 0)
@@ -129,12 +128,20 @@ class _Event:
         return self.done
 
 
+def _copying(lease, frame):
+    """``frame``'s newest upload, still running: a stand-in for the CUDA
+    event ``Lease.upload`` records behind a copy to a card."""
+    event = _Event()
+    lease._out[id(frame)].event = event
+    return event
+
+
 def test_a_frame_waits_for_its_event_and_the_pool_keeps_its_bound():
-    pool = frames.FramePool(pinned=False)
+    pool = transfer.FramePool(pinned=False)
     lease = pool.lease(2)
     a = lease.take((4, 4))
-    event = _Event()
-    lease.give(a, event)
+    event = _copying(lease, a)
+    lease.give(a)
     b = lease.take((4, 4))
     assert b is not a  # a's copy has not finished
     assert lease.take((4, 4)) is None  # two frames: the bound
@@ -147,7 +154,8 @@ def test_a_frame_waits_for_its_event_and_the_pool_keeps_its_bound():
     # copy is still running does not
     c = lease.take((8, 2))
     assert c is not None and pool.frames == 2 and pool.idle() == 0
-    lease.give(c, _Event())
+    _copying(lease, c)
+    lease.give(c)
     assert lease.take((3, 3)) is None
     lease.close()
     assert pool.idle() == pool.frames == 2
@@ -180,30 +188,31 @@ class _Ledger:
     def __init__(self, monkeypatch):
         self.log, self.peak = [], 0
         lock = threading.Lock()
-        take, give, upload = frames.FramePool._take, frames.FramePool._give, tpipeline._upload
+        take, give, upload = (transfer.FramePool._take, transfer.FramePool._give,
+                              transfer.Lease.upload)
 
         def _take(pool, shape):
-            frame = take(pool, shape)
+            block = take(pool, shape)
             with lock:
-                if frame is not None:
-                    self.log.append(("take", frame.data_ptr()))
+                if block is not None:
+                    self.log.append(("take", block.host.data_ptr()))
                 self.peak = max(self.peak, pool.frames)
-            return frame
+            return block
 
-        def _give(pool, frame, event):
+        def _give(pool, block):
             with lock:
-                self.log.append(("give", frame.data_ptr()))
-            give(pool, frame, event)
+                self.log.append(("give", block.host.data_ptr()))
+            give(pool, block)
 
-        def _upload(r, device, events):
+        def _upload(lease, r, device):
             if isinstance(r, torch.Tensor):
                 with lock:
                     self.log.append(("upload", r.data_ptr()))
-            return upload(r, device, events)
+            return upload(lease, r, device)
 
-        monkeypatch.setattr(frames.FramePool, "_take", _take)
-        monkeypatch.setattr(frames.FramePool, "_give", _give)
-        monkeypatch.setattr(tpipeline, "_upload", _upload)
+        monkeypatch.setattr(transfer.FramePool, "_take", _take)
+        monkeypatch.setattr(transfer.FramePool, "_give", _give)
+        monkeypatch.setattr(transfer.Lease, "upload", _upload)
 
     def states(self, given_unuploaded: bool = False):
         """Each frame's state, "idle", "out" (taken) or "uploaded", after
@@ -280,7 +289,7 @@ def test_the_pool_stays_within_the_frames_in_flight(tmp_path, monkeypatch, batch
     out = list(pipe.process(paths, batch_size=batch_size, prefetch=prefetch))
     assert len(out) == len(paths)
     ledger.check(pipe, given_unuploaded=False)
-    assert 2 <= ledger.peak <= frames.in_flight(batch_size, prefetch)
+    assert 2 <= ledger.peak <= transfer.in_flight(batch_size, prefetch)
 
 
 def test_a_failed_read_under_skip_errors_gives_its_frame_back(micrographs, tmp_path,
@@ -322,7 +331,7 @@ def test_pool_frames_and_pageable_arrays_give_the_same_answers(micrographs, monk
                                                                denoise):
     pipe = _pipe(denoise_model=denoise)
     pooled = list(pipe.process(micrographs, batch_size=2))
-    monkeypatch.setattr(frames.FramePool, "_take", lambda pool, shape: None)
+    monkeypatch.setattr(transfer.FramePool, "_take", lambda pool, shape: None)
     before = _counts()
     pageable = list(pipe.process(micrographs, batch_size=2))
     assert _counts()[1] - before[1] == len(micrographs)

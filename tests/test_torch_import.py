@@ -101,6 +101,28 @@ def test_h5py_is_imported_only_by_the_hdf_sampler():
     assert where == [("topaz_tpu_torch/train/denoise_data.py", "make_hdf5_samplers")], where
 
 
+def test_pinned_blocks_and_copy_events_live_only_in_transfer():
+    """Pinned host memory a module allocates and holds (the keyword
+    ``pin_memory=``) and the CUDA events behind host<->device copies
+    (``torch.cuda.Event(``) belong to ``transfer.py`` alone, which reuses a
+    block only once the copy behind it has finished."""
+    where = []
+    for path in _port_files():
+        rel = os.path.relpath(path, REPO)
+        if not rel.startswith("topaz_tpu_torch" + os.sep):
+            continue
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call):
+                continue
+            if any(k.arg == "pin_memory" for k in node.keywords):
+                where.append((rel, "pin_memory="))
+            if ast.unparse(node.func) == "torch.cuda.Event":
+                where.append((rel, "torch.cuda.Event("))
+    assert {rel for rel, _ in where} == {os.path.join("topaz_tpu_torch", "transfer.py")}, where
+
+
 def _entry_points(tmp_path):
     from topaz_tpu_torch.device import resolve_device
     from topaz_tpu_torch.extract import extract_particles

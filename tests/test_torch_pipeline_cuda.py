@@ -1,5 +1,5 @@
 """The batched pipeline on the card against the same pipeline on the CPU,
-``fetch_async``'s copies out of the card, and the pinned host frames the
+``transfer.fetch``'s copies out of the card, and the pinned host frames the
 raw micrographs are read into and uploaded from.
 
 This file imports no JAX, so that it runs on a machine with a card and no
@@ -16,11 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from topaz_tpu_torch import pipeline as tpipeline
+from topaz_tpu_torch import transfer
 from topaz_tpu_torch.io import mrc
 from topaz_tpu_torch.pipeline import MicrographPipeline
-from topaz_tpu_torch.utils import frames
-from topaz_tpu_torch.utils.batching import fetch_async
 
 RADIUS, THRESHOLD = 6, 1.0
 
@@ -83,7 +81,7 @@ def test_fetch_async_returns_the_right_bytes(cuda_device):
         b = torch.randint(-9, 9, (8, 600, 2), device=cuda_device, generator=g, dtype=torch.int32)
         a = a @ a  # still queued on the stream when the copy is issued
         c = a.sum(dim=0) > 0
-        got = fetch_async(a, None, b, c, np.arange(3))
+        got = transfer.fetch(a, None, b, c, np.arange(3))
         assert got[1] is None
         np.testing.assert_array_equal(got[0], a.cpu().numpy())
         np.testing.assert_array_equal(got[2], b.cpu().numpy())
@@ -104,18 +102,18 @@ def test_raw_frames_upload_from_pinned_frames_with_the_pageable_answers(cuda_dev
         mrc.write(paths[-1], rng.normal(size=(h, w)).astype(np.float32))
     pipe = MicrographPipeline(model="resnet8_u32", denoise_model="fcnn", scale=4, radius=RADIUS,
                               threshold=THRESHOLD, num_workers=2, device=cuda_device)
-    pinned, upload = [], tpipeline._upload
+    pinned, upload = [], transfer.Lease.upload
 
-    def spy(r, device, events):
+    def spy(lease, r, device):
         pinned.append(isinstance(r, torch.Tensor) and r.is_pinned())
-        return upload(r, device, events)
+        return upload(lease, r, device)
 
-    monkeypatch.setattr(tpipeline, "_upload", spy)
+    monkeypatch.setattr(transfer.Lease, "upload", spy)
     pooled = list(pipe.process(paths, batch_size=2))
     assert pinned and all(pinned)
     assert pipe._frames.idle() == pipe._frames.frames == len(paths)
     with monkeypatch.context() as m:
-        m.setattr(frames.FramePool, "_take", lambda pool, shape: None)
+        m.setattr(transfer.FramePool, "_take", lambda pool, shape: None)
         pinned.clear()
         pageable = list(pipe.process(paths, batch_size=2))
         assert pinned and not any(pinned)
@@ -130,7 +128,7 @@ def test_a_pinned_frame_is_not_reused_before_its_upload_has_finished(cuda_device
     """A frame given back behind a non-blocking upload still queued on the
     stream is handed out again only once the upload's event has completed;
     the upload then holds the frame's values."""
-    pool = frames.FramePool(pinned=True)
+    pool = transfer.FramePool(pinned=True)
     lease = pool.lease(4)
     frame = lease.take((4096, 4096))
     assert frame.is_pinned()
@@ -138,10 +136,9 @@ def test_a_pinned_frame_is_not_reused_before_its_upload_has_finished(cuda_device
     a = torch.randn((8192, 8192), device=cuda_device)
     for _ in range(8):
         a = a @ a  # the upload waits behind these on the stream
-    events = {}
-    x = tpipeline._upload(frame, cuda_device, events)
-    lease.give(frame, events[id(frame)])
-    assert not events[id(frame)].query()
+    x = lease.upload(frame, cuda_device)
+    lease.give(frame)
+    assert not pool._idle[(4096, 4096)][0].ready()  # the upload's event
     other = lease.take((4096, 4096))
     assert other is not None and other.data_ptr() != frame.data_ptr()
     torch.cuda.synchronize(cuda_device)

@@ -14,6 +14,7 @@ import torch
 from topaz_tpu.ops import nms as jnms
 from topaz_tpu.utils import batching as jbatching
 from topaz_tpu.utils import retry as jretry
+from topaz_tpu_torch import transfer
 from topaz_tpu_torch.ops import nms as tnms
 from topaz_tpu_torch.utils import batching as tbatching
 from topaz_tpu_torch.utils import profiling
@@ -40,7 +41,7 @@ def test_valid_mask_equals_jax(bucket):
 def test_fetch_async_passes_host_values_through():
     a = np.arange(6, dtype=np.float32).reshape(2, 3)
     t = torch.arange(4, dtype=torch.int32)
-    got = tbatching.fetch_async(a, None, t)
+    got = transfer.fetch(a, None, t)
     np.testing.assert_array_equal(got[0], a)
     assert got[1] is None
     np.testing.assert_array_equal(got[2], t.numpy())

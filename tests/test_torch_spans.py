@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from topaz_tpu_torch import device
+from topaz_tpu_torch import transfer
 from topaz_tpu_torch.cli.main import main
 from topaz_tpu_torch.denoise import Denoise, Denoise3D, denoise_image
 from topaz_tpu_torch.io import mrc
@@ -121,9 +121,9 @@ def test_denoise_image_records_its_four_spans(clean):
 
 
 def _staged(fn):
-    before = device.staged_uploads
+    before = transfer.staged_uploads
     out = fn()
-    return out, device.staged_uploads - before
+    return out, transfer.staged_uploads - before
 
 
 def test_denoise_image_spans_hold_on_the_staged_route(clean, cpu_staging):

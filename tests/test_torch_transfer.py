@@ -1,4 +1,4 @@
-"""``device.as_device_tensor`` and ``device.to_host`` on the CPU: the
+"""``transfer.as_device_tensor`` and ``transfer.to_host`` on the CPU: the
 values, dtype and device each host input comes out with, the route it
 takes to a card (staged through the card's ring of pinned slots, or plain),
 the staging ring's chunks and casts, and the module counters. The card's
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from topaz_tpu_torch import device
+from topaz_tpu_torch import transfer
 from torch_staging import CARD, SLOT, cpu_staging  # noqa: F401
 
 COUNTERS = ("staged_uploads", "staged_bytes", "plain_uploads", "pinned_fetches")
@@ -49,9 +49,9 @@ def _want(x):
 
 
 def _counted(fn):
-    before = {c: getattr(device, c) for c in COUNTERS}
+    before = {c: getattr(transfer, c) for c in COUNTERS}
     out = fn()
-    return out, {c: getattr(device, c) - before[c] for c in COUNTERS}
+    return out, {c: getattr(transfer, c) - before[c] for c in COUNTERS}
 
 
 def _bits_equal(got: torch.Tensor, want: np.ndarray):
@@ -64,20 +64,20 @@ def _bits_equal(got: torch.Tensor, want: np.ndarray):
 def test_a_cpu_target_keeps_todays_copy(case):
     make, _ = CASES[case]
     x = make()
-    got, counted = _counted(lambda: device.as_device_tensor(x, "cpu"))
+    got, counted = _counted(lambda: transfer.as_device_tensor(x, "cpu"))
     _bits_equal(got, _want(x))
     assert counted == dict.fromkeys(COUNTERS, 0)  # nothing goes to a card
-    assert device._route(x, torch.device("cpu")) is None
+    assert transfer._route(x, torch.device("cpu")) is None
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_host_data_takes_its_route_to_a_card(case, cpu_staging):
     make, route = CASES[case]
     x = make()
-    assert device._route(x, CARD) == route
+    assert transfer._route(x, CARD) == route
     # on the CPU, tensors are device data: route them as arrays
     src = x.numpy() if isinstance(x, torch.Tensor) else x
-    got, counted = _counted(lambda: device.as_device_tensor(src, "cpu"))
+    got, counted = _counted(lambda: transfer.as_device_tensor(src, "cpu"))
     _bits_equal(got, _want(x))
     n = int(np.prod(x.shape))
     assert counted == {"staged_uploads": int(route == "staged"),
@@ -96,15 +96,15 @@ def test_host_data_takes_its_route_to_a_card(case, cpu_staging):
     (lambda: torch.zeros(2 ** 18, device="meta"), None),      # device data
 ])
 def test_the_route_follows_size_layout_and_place(make, route):
-    assert device._route(make(), CARD) == route
+    assert transfer._route(make(), CARD) == route
 
 
 @pytest.mark.parametrize("n", [1, SLOT - 1, SLOT, SLOT + 1, 2 * SLOT, 2 * SLOT + 7,
                                5 * SLOT + 3])
 @pytest.mark.parametrize("dtype", [np.float64, np.int64, np.float16, np.bool_])
 def test_the_ring_casts_every_chunk_as_numpy(n, dtype, monkeypatch):
-    monkeypatch.setattr(device, "_PART", 4096)  # a chunk's cast split in 3
-    ring = device.StagingRing(pinned=False, slots=2, slot_bytes=4 * SLOT, threads=3)
+    monkeypatch.setattr(transfer, "_PART", 4096)  # a chunk's cast split in 3
+    ring = transfer.StagingRing(pinned=False, slots=2, slot_bytes=4 * SLOT, threads=3)
     rng = np.random.default_rng(n)
     scale = 2.0 ** 30 if dtype in (np.float64, np.int64) else 1e3  # these two round
     x = (rng.normal(size=n) * scale).astype(dtype)
@@ -127,7 +127,7 @@ def test_threads_share_one_ring_and_lose_no_count(cpu_staging):
 
     def work(x):
         for _ in range(each):
-            if not np.array_equal(device.as_device_tensor(x, "cpu").numpy(),
+            if not np.array_equal(transfer.as_device_tensor(x, "cpu").numpy(),
                                   x.astype(np.float32)):
                 bad.append(x)
 
@@ -152,6 +152,6 @@ def test_threads_share_one_ring_and_lose_no_count(cpu_staging):
 
 def test_to_host_gives_a_cpu_tensor_its_own_memory():
     t = torch.arange(12, dtype=torch.float32).reshape(3, 4)
-    got, counted = _counted(lambda: device.to_host(t))
+    got, counted = _counted(lambda: transfer.to_host(t))
     assert isinstance(got, np.ndarray) and np.shares_memory(got, t.numpy())
     assert counted == dict.fromkeys(COUNTERS, 0)

@@ -1,4 +1,4 @@
-"""The staged upload of ``topaz_tpu_torch.device`` on the CPU.
+"""The staged upload of ``topaz_tpu_torch.transfer`` on the CPU.
 
 On a card, large host arrays go through the card's pinned ``StagingRing``;
 on the CPU nothing is uploaded, so that route never runs. The fixture
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from topaz_tpu_torch import device
+from topaz_tpu_torch import transfer
 
 SLOT = 100_003  # floats a slot: no test size is a multiple of it
 CARD = torch.device("cuda", 0)
@@ -19,14 +19,14 @@ CARD = torch.device("cuda", 0)
 
 @pytest.fixture
 def cpu_staging(monkeypatch):
-    monkeypatch.setattr(device, "_PART", 4096)  # a chunk's cast split in 3
-    ring = device.StagingRing(pinned=False, slots=2, slot_bytes=4 * SLOT, threads=3)
-    route = device._route
+    monkeypatch.setattr(transfer, "_PART", 4096)  # a chunk's cast split in 3
+    ring = transfer.StagingRing(pinned=False, slots=2, slot_bytes=4 * SLOT, threads=3)
+    route = transfer._route
 
     def as_on_a_card(x, dev):
         return route(x, CARD) if isinstance(x, np.ndarray) else route(x, dev)
 
-    monkeypatch.setattr(device, "_route", as_on_a_card)
-    monkeypatch.setattr(device, "staging_ring", lambda dev: ring)
+    monkeypatch.setattr(transfer, "_route", as_on_a_card)
+    monkeypatch.setattr(transfer, "staging_ring", lambda dev: ring)
     yield ring
     ring.close()

@@ -85,7 +85,7 @@ def main() -> None:
     print(f"# card: {card}")
 
     from topaz_tpu_torch.denoise import Denoise, denoise_image
-    from topaz_tpu_torch.device import as_device_tensor, to_host
+    from topaz_tpu_torch.transfer import as_device_tensor, to_host
     from topaz_tpu_torch.io import mrc
     from topaz_tpu_torch.io.image import load_image, save_image
     from topaz_tpu_torch.utils.synthetic import make_ctf_micrograph

@@ -56,7 +56,7 @@ def loaders_alone(pipe, paths, batch_size):
     allocates the frames)."""
     from topaz_tpu_torch.pipeline import _image_shape
     from topaz_tpu_torch.utils.batching import window_batches
-    from topaz_tpu_torch.utils.frames import in_flight
+    from topaz_tpu_torch.transfer import in_flight
 
     items = [(p, _image_shape(p)) for p in paths]
     frames = pipe._frames.lease(in_flight(batch_size, 2))

@@ -6,7 +6,7 @@ Each micrograph is uploaded once; the filter pipeline (lowpass ->
 normalize and pixel cutoff -> gaussian, inverse gaussian or whitening
 deconvolution -> model average -> rescale) and the model run on the
 device, and the denoised image is copied back once; both copies go through
-pinned host memory (``device.as_device_tensor``, ``device.to_host``).
+pinned host memory (``transfer.as_device_tensor``, ``transfer.to_host``).
 Whole-image denoising normalizes by the image's own statistics. Patch
 denoising cuts every patch from the resident micrograph, normalizes each
 by its own statistics, as the reference does (topaz/denoise.py:299-324),
@@ -42,7 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from topaz_tpu_torch.device import as_device_tensor, resolve_device, to_host
+from topaz_tpu_torch.device import resolve_device
 from topaz_tpu_torch.io import mrc
 from topaz_tpu_torch.io.image import load_image, save_image
 from topaz_tpu_torch.models.denoise import min_input_size
@@ -63,10 +63,11 @@ from topaz_tpu_torch.ops.filters import (
     inv_gaussian_kernel,
 )
 from topaz_tpu_torch.train.trainer import make_optimizer
+from topaz_tpu_torch.transfer import as_device_tensor, to_host
 from topaz_tpu_torch.utils.profiling import stage
 
 
-# Denoise3D's work in this process, as utils/frames counts its reads:
+# Denoise3D's work in this process, as transfer.py counts its copies:
 # patches denoised, voxels through the network (padded patches, a streaming
 # batch's fill copies, whole volumes), voxels of output, and patched volumes
 # by route; callers may reset each to 0
@@ -551,15 +552,6 @@ def make_denoise_step(model: torch.nn.Module, optimizer, loss_fn: str = "L2", me
     return step
 
 
-def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host batch on ``device``; to a card through pinned memory without
-    waiting, so that the host prepares the next batch while the device works."""
-    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
-
-
 def _weighted_mean(losses: List[torch.Tensor], weights: List[int]) -> float:
     """Batch losses (device scalars) weighted by batch size, in float64 on
     the host: one fetch an epoch."""
@@ -623,7 +615,8 @@ def train_denoiser(model: torch.nn.Module, train_sampler, val_sampler, loss_fn: 
                 if epoch == 0 and not weights:
                     _check_min_extent(meta, src.shape[1:1 + dims], "training tiles",
                                       "--crop/-c")
-                losses.append(step(_upload(src, device), _upload(tgt, device), gamma))
+                losses.append(step(as_device_tensor(src, device), as_device_tensor(tgt, device),
+                                   gamma))
                 weights.append(src.shape[0])
             if epoch == 0 and not weights:
                 raise ValueError(
@@ -634,8 +627,9 @@ def train_denoiser(model: torch.nn.Module, train_sampler, val_sampler, loss_fn: 
             losses, weights = [], []
             with torch.no_grad():
                 for src, tgt in val_sampler.batches(batch_size, shuffle=False):
-                    pred = model(_upload(src, device)[:, None])[:, 0]
-                    losses.append(denoise_loss(loss_fn, pred, _upload(tgt, device), gamma))
+                    pred = model(as_device_tensor(src, device)[:, None])[:, 0]
+                    losses.append(denoise_loss(loss_fn, pred, as_device_tensor(tgt, device),
+                                               gamma))
                     weights.append(src.shape[0])
             val_loss = _weighted_mean(losses, weights)
 

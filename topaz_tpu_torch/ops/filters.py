@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from topaz_tpu_torch.device import as_device_tensor
+from topaz_tpu_torch.transfer import as_device_tensor
 
 
 def gaussian_filter(sigma: float, s: int = 11, dims: int = 2) -> np.ndarray:

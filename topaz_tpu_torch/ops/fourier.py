@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from topaz_tpu_torch.device import as_device_tensor
+from topaz_tpu_torch.transfer import as_device_tensor
 
 
 def _target_shape(x_shape, factor, shape):

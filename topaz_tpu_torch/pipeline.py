@@ -24,8 +24,8 @@ whose disk max-filter is the CUDA kernel of ops/disk_max.py at (B, bh, bw);
 only the pick tables (and the denoised images) come back, with one
 synchronisation a batch. Loader threads read files (and run the host FFT)
 while the device works; a raw frame is read straight into a reused host
-frame (pinned on a CUDA device, utils/frames.py), so its upload is a copy
-that does not hold the host.
+frame (pinned on a CUDA device, transfer.FramePool), so its upload is a
+copy that does not hold the host.
 
 Over a ``mesh`` (parallel/mesh.py) each batch is split over the data axis,
 each data row running the whole batch function on its share with its own
@@ -54,9 +54,9 @@ from topaz_tpu_torch.ops.gmm import norm_fit, norm_fit_hist
 from topaz_tpu_torch.ops.nms import NEG, nms_topk_batched
 from topaz_tpu_torch.parallel.mesh import (Mesh, make_halo_dense_scorer, replicas,
                                            split_apply)
-from topaz_tpu_torch.utils.batching import (fetch_async, iterate_prefetched, load_batches,
-                                             round_bucket, valid_mask)
-from topaz_tpu_torch.utils.frames import FramePool, Lease, count_read, in_flight
+from topaz_tpu_torch.transfer import FramePool, Lease, count_read, fetch, in_flight
+from topaz_tpu_torch.utils.batching import (iterate_prefetched, load_batches, round_bucket,
+                                             valid_mask)
 from topaz_tpu_torch.utils.profiling import stage
 from topaz_tpu_torch.utils.retry import retry_transient
 
@@ -373,14 +373,13 @@ class MicrographPipeline:
                     break
                 bucket, seq, chunk, payload, valid = item
                 fn = self._fn_for(bucket)
-                events: Dict = {}  # a frame's id -> the event behind its last upload
 
                 def dispatch_and_fetch():
                     if isinstance(payload, list):
                         images = []
                         for r in payload:
                             with stage("pipeline/upload", seq, device):
-                                x = _upload(r, device, events)
+                                x = frames.upload(r, device)
                             with stage("pipeline/prep", seq, device):
                                 images.append(self._prep_for(r.shape, bucket)(x))
                             del x  # one raw frame on the card at a time
@@ -393,18 +392,17 @@ class MicrographPipeline:
                     # the copy-out is inside the retried call: a dropped
                     # transport can surface there
                     with stage("pipeline/fetch", seq):
-                        return fetch_async(*out[:4], out[4] if len(out) > 4 else None)
+                        return fetch(*out[:4], out[4] if len(out) > 4 else None)
 
                 try:
                     scores, coords, counts, degen, dens = retry_transient(
                         dispatch_and_fetch, retries=self.retries,
                         what=f"pipeline batch {bucket}")
                 finally:
-                    # each frame once, behind its last upload: a partial
-                    # batch repeats its last frame
+                    # each frame once (a partial batch repeats its last
+                    # frame), behind its newest upload
                     for r in payload if frames is not None else ():
-                        if isinstance(r, torch.Tensor):
-                            frames.give(r, events.get(id(r)))
+                        frames.give(r)
                 for i, (path, _raw_shape, _batch) in enumerate(chunk):
                     if degen[i]:
                         warnings.warn(
@@ -421,21 +419,6 @@ class MicrographPipeline:
             batches.close()
             if frames is not None:
                 frames.close()
-
-
-def _upload(r, device, events: Dict):
-    """A raw frame on ``device``. A pool frame is copied without holding
-    the host (a DMA from pinned memory on a CUDA device), and the event
-    recorded behind the copy goes into ``events`` under the frame's id; a
-    pageable array is copied as it stands."""
-    if not isinstance(r, torch.Tensor):
-        return torch.from_numpy(r).to(device)
-    x = r.to(device, non_blocking=True)
-    if x.is_cuda:
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(x.device))
-        events[id(r)] = event
-    return x
 
 
 def _load_2d(path: str) -> np.ndarray:

@@ -129,8 +129,9 @@ def normalize_images_batched(
 
     from topaz_tpu_torch.ops.gmm import norm_fit, norm_fit_hist
     from topaz_tpu_torch.pipeline import _image_shape
-    from topaz_tpu_torch.utils.batching import (fetch_async, iterate_prefetched,
-                                                 load_batches, round_bucket, valid_mask)
+    from topaz_tpu_torch.transfer import fetch
+    from topaz_tpu_torch.utils.batching import (iterate_prefetched, load_batches,
+                                                 round_bucket, valid_mask)
 
     from topaz_tpu_torch.parallel.mesh import split_apply
 
@@ -203,7 +204,7 @@ def normalize_images_batched(
     for chunk, arr, valid, headers, ext_headers in iterate_prefetched(produce, maxsize=2):
         arr_t, valid_t = torch.from_numpy(arr).to(device), torch.from_numpy(valid).to(device)
         out = split_apply(lambda i, dev, a, v: fit_batch(a, v), devices, arr_t, valid_t)
-        normed, *stats = fetch_async(*out)
+        normed, *stats = fetch(*out)
         for i, path in enumerate(chunk):
             name = os.path.splitext(os.path.basename(path))[0]
             base = os.path.join(dest, name)

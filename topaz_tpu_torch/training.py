@@ -47,6 +47,7 @@ from topaz_tpu_torch.train.methods import bce_with_logits, make_loss_fn
 from topaz_tpu_torch.train.partition import kfold
 from topaz_tpu_torch.train.trainer import (
     init_train_state, is_jax_state, load_train_state, make_train_step, save_train_state)
+from topaz_tpu_torch.transfer import fetch_later
 from topaz_tpu_torch.utils.batching import iterate_prefetched
 from topaz_tpu_torch.utils.printing import report
 from topaz_tpu_torch.utils.profiling import stage
@@ -214,31 +215,22 @@ def evaluate_model(model, test_paths: List[str], test_targets: Coordinates,
 
 class _LaggedRows:
     """Train rows fetched a few steps behind their step: each row's metrics
-    go to a pinned host buffer in one non-blocking copy right after the
-    step, with an event; a row is read once ``depth`` newer rows wait, or
-    at the end of the epoch, waiting only for its own event."""
+    start for the host right after the step (``transfer.fetch_later``); a
+    row is read once ``depth`` newer rows wait, or at the end of the epoch,
+    waiting only for its own copy."""
 
     def __init__(self, print_row, depth: int):
         self.print_row, self.depth = print_row, depth
         self.pending: deque = deque()
 
     def push(self, epoch: int, it: int, packed: torch.Tensor) -> None:
-        event = None
-        if packed.is_cuda:
-            buf = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-            buf.copy_(packed, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            packed = buf
-        self.pending.append((epoch, it, packed, event))
+        self.pending.append((epoch, it, fetch_later(packed)))
         if len(self.pending) > self.depth:
             self._pop()
 
     def _pop(self) -> None:
-        epoch, it, packed, event = self.pending.popleft()
-        if event is not None:
-            event.synchronize()
-        self.print_row(epoch, it, packed.tolist())
+        epoch, it, row = self.pending.popleft()
+        self.print_row(epoch, it, row.result().tolist())
 
     def flush(self) -> None:
         while self.pending:

@@ -18,7 +18,8 @@ from typing import List
 import numpy as np
 import torch
 
-from topaz_tpu_torch.device import as_device_tensor, resolve_device
+from topaz_tpu_torch.device import resolve_device
+from topaz_tpu_torch.transfer import as_device_tensor
 
 
 class ScaledGaussianMixture:

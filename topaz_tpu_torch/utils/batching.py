@@ -2,43 +2,18 @@
 
 The batched pipelines (pipeline.MicrographPipeline and
 preprocess.normalize_images_batched) zero-pad each micrograph up to a
-rounded shape bucket, mask device statistics to the valid region, keep the
-device fed with loader threads, and fetch their results with one
-synchronisation. This module holds those pieces so that they cannot drift
-between the two.
+rounded shape bucket, mask device statistics to the valid region, and keep
+the device fed with loader threads. This module holds those pieces so that
+they cannot drift between the two.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Iterator, List, Sequence, Tuple
 
-import numpy as np
 import torch
 
 _SENTINEL = object()
-
-
-def fetch_async(*tensors):
-    """Copy several device tensors to the host with one synchronisation.
-
-    Every device-to-host copy is started non-blocking into a pinned host
-    buffer on the stream that produced the tensor; then each stream used is
-    synchronised once, and only then are the buffers read. Returns numpy
-    arrays; ``None``, numpy arrays and CPU tensors pass through."""
-    bufs, streams = [], {}
-    for t in tensors:
-        if isinstance(t, torch.Tensor) and t.is_cuda:
-            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            stream = torch.cuda.current_stream(t.device)
-            buf.copy_(t, non_blocking=True)
-            streams[stream.cuda_stream] = stream
-            bufs.append(buf)
-        else:
-            bufs.append(t)
-    for stream in streams.values():
-        stream.synchronize()
-    return tuple(None if b is None else b.numpy() if isinstance(b, torch.Tensor)
-                 else np.asarray(b) for b in bufs)
 
 
 def round_bucket(shape: Sequence[int], step: int) -> Tuple[int, ...]:
