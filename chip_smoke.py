@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero before a result is printed:
 
 1. Require a CUDA device; print the card's name and power limit.
 2. Build every CUDA kernel of the port from csrc/ (nvcc, sm_90a, one
-   process a source, all started together): disk_max.cu and gmm_em.cu.
+   process a source, all started together): disk_max.cu, gmm_em.cu and
+   unet_edges.cu.
 3. Hold each kernel against its plain PyTorch version on the card. The
    disk max bit-equal (random f32 and int32 maps and the maps the NMS
    rounds feed it, a score map ~90% -inf, an index map with INT32_MIN off
@@ -37,7 +38,13 @@ Phases, in order; any failure exits non-zero before a result is printed:
    whole (the recompute route) and one image each side of the largest N
    whose slices a cluster of 16 keeps whole in shared memory (resident at
    it, recompute above). Every row has the kernel's plan: its cluster size,
-   route, pixels a block kept and dynamic shared memory.
+   route, pixels a block kept and dynamic shared memory. The U-Net's edge
+   kernels (``check_unet_edges``): bias and leaky ReLU, then the pool or
+   the upsample into the concat, bit-equal to their plain compositions on
+   2D and 3D maps, N 1 and 8, odd extents, skips of 0, 1 and 48 channels,
+   inputs with +-0, +-inf and NaN; each timed (CUDA events) beside PyTorch's
+   ops and its bytes bound at a 4096^2 image's and a 192^3 window's top
+   level.
 4. Drive the main path through the CLI a user calls: a 4096^2 synthetic
    micrograph through ``preprocess -s 8`` and
    ``extract -m resnet8_u32 -r 14 -t -6`` on the card (launch counts read
@@ -50,8 +57,9 @@ Phases, in order; any failure exits non-zero before a result is printed:
    bundled unet (``unet_L2_v0.2.1``, full width): whole image (``-s 0``)
    and in the CLI's default patches (``-s 1024 -p 500``), each cold then
    warm; every output has the input's shape, is finite and differs from
-   the input. Time the U-Net forward at 4096^2 with CUDA events beside its
-   bound (convolution FLOPs from ``arch_layout`` over the f32 rate, TF32
+   the input. Time the U-Net forward at 4096^2 with CUDA events (the fused
+   route, bit-equal to the modules' forward, which is timed beside it)
+   beside its bound (convolution FLOPs from ``arch_layout`` over the f32 rate, TF32
    off) and its peak memory; for comparison only, also with
    ``cudnn.benchmark`` on, with TF32 and in bf16, none of which the port
    uses by default. Then hold card against CPU at ``--downsample 8 -s 0``
@@ -512,29 +520,150 @@ def check_disk_max():
     return err, single, batched, by_radius
 
 
-# the EM kernel's launches on each path, read in the same windows as the
-# disk max's (reset_launches / read_launches)
+def same_bits(a, b) -> bool:
+    """Equal shapes, NaN at the same places and every other value equal bit
+    for bit (so -0.0 is not 0.0)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
+
+
+def unet_edge_input(shape, g, specials: bool):
+    """Normal float32 values with zeros of both signs, and, with
+    ``specials``, +-inf and NaN sprinkled in."""
+    import torch
+
+    x = torch.randn(shape, device="cuda", generator=g)
+    u = torch.rand(shape, device="cuda", generator=g)
+    x[u < 0.02] = 0.0
+    x[(u >= 0.02) & (u < 0.04)] = -0.0
+    if specials:
+        x[(u >= 0.04) & (u < 0.045)] = float("inf")
+        x[(u >= 0.045) & (u < 0.05)] = float("-inf")
+        x[(u >= 0.05) & (u < 0.055)] = float("nan")
+    return x
+
+
+def unet_edge_calls(kind, shape, g, specials: bool = False):
+    """(kernel call, plain call, bytes) of one U-Net edge: ``bias_lrelu``
+    on a (N, C, *S) map, ``pool`` of one, or ``up_cat`` of a (N, C1, *S)
+    map upsampled to ``shape[3]`` with a skip of ``shape[2]`` channels
+    (``shape`` = (N, C1, C2, S_out)); the bytes read and written once each."""
+    from topaz_tpu_torch.ops import unet_edges as E
+
+    if kind == "up_cat":
+        n, c1, c2, size = shape
+        h = unet_edge_input((n, c1, *(s // 2 for s in size)), g, specials)
+        skip = unet_edge_input((n, c2, *size), g, specials) if c2 else None
+        b = unet_edge_input((c1,), g, False)
+        out = math.prod(E.up_cat_shape(h.shape, c2, size))
+        return (lambda: E.bias_lrelu_up_cat(h, b, skip, size),
+                lambda: E.bias_lrelu_up_cat_plain(h, b, skip, size),
+                4 * (h.numel() + (skip.numel() if c2 else 0) + out))
+    x = unet_edge_input(shape, g, specials)
+    b = unet_edge_input((shape[1],), g, False)
+    if kind == "pool":
+        return (lambda: E.bias_lrelu_pool(x, b), lambda: E.bias_lrelu_pool_plain(x, b),
+                4 * (x.numel() + math.prod(E.pool_shape(x.shape))))
+    # in place: the kernel's call on a copy made once, so that the check
+    # sees one pass; the timed calls repeat it on that copy
+    y = x.clone()
+    return (lambda: E.bias_lrelu_(y, b), lambda: E.bias_lrelu_plain(x, b), 8 * x.numel())
+
+
+# the U-Net's edges timed: a 4096^2 image's top level (nf 48: enc1's pool,
+# dec2 -> dec1's upsample of 96 channels with the one-channel input as its
+# skip, dec1's 64- and 32-channel passes) and a 192^3 window's
+UNET_EDGE_TIMED = [
+    ("pool", (1, 48, SIZE, SIZE), "enc1 4096^2"),
+    ("up_cat", (1, 96, 1, (SIZE, SIZE)), "dec2 -> dec1 4096^2"),
+    ("bias_lrelu", (1, 64, SIZE, SIZE), "dec1.0 4096^2"),
+    ("bias_lrelu", (1, 32, SIZE, SIZE), "dec1.2 4096^2"),
+    ("pool", (1, 48, 192, 192, 192), "enc1 192^3"),
+    ("up_cat", (1, 96, 1, (192, 192, 192)), "dec2 -> dec1 192^3"),
+    ("bias_lrelu", (1, 64, 192, 192, 192), "dec1.0 192^3"),
+]
+
+
+def check_unet_edges():
+    """The U-Net's edge kernels against their plain compositions, bit for
+    bit: 2D and 3D, N 1 and 8, even and odd extents, skips of 0, 1 and 48
+    channels, inputs with +-0, +-inf and NaN, and each timed shape; then
+    each timed (CUDA events, 20 eager calls) beside the plain composition
+    (``library_ms``: PyTorch's ops, as the modules run them) and the bytes
+    bound. Returns the timed rows."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = [(k, (n, 6, *s)) for k in ("bias_lrelu", "pool") for n in (1, 8)
+             for s in ((64, 96), (33, 47), (16, 12, 20), (9, 14, 11))]
+    cases += [("up_cat", (n, 7, c2, s)) for n in (1, 8) for c2 in (0, 1, 48)
+              for s in ((64, 96), (33, 47), (16, 12, 20), (9, 14, 11))]
+    for kind, shape in cases:
+        kernel, plain, _ = unet_edge_calls(kind, shape, g, specials=True)
+        if not same_bits(kernel(), plain()):
+            fail(f"unet_edges {kind} {shape}: kernel differs from its plain composition")
+    print(f"# unet_edges: {len(cases)} cases bit-equal to the plain compositions "
+          f"(+-0, +-inf, NaN; even and odd extents; 2D and 3D)")
+    rows = []
+    for kind, shape, label in UNET_EDGE_TIMED:
+        kernel, plain, nbytes = unet_edge_calls(kind, shape, g)
+        # no NaN here: the bits compared through views, with no copies
+        if not torch.equal(kernel().view(torch.int32), plain().view(torch.int32)):
+            fail(f"unet_edges {kind} {label}: kernel differs from its plain composition")
+        row = {"kind": kind, "label": label, "shape": [list(v) if isinstance(v, tuple) else v
+                                                       for v in shape],
+               "ms": cuda_ms(kernel, 20), "library_ms": cuda_ms(plain, 20),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        row["share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        print(f"# unet_edges {kind} {label}: kernel {row['ms']:.4f} ms, PyTorch's ops "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({nbytes / 1e9:.3f} "
+              f"GB at 3.35 TB/s), {row['share']:.3f} of it")
+        del kernel, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
+# the EM kernel's and the U-Net edge kernels' launches on each path, read
+# in the same windows as the disk max's (reset_launches / read_launches)
 GMM_LAUNCHES = {}
+UNET_EDGE_LAUNCHES = {}
 # the normalized micrograph's card-vs-CPU max abs diff of phase slice
 NORMALIZED_ERR = {}
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0, just before a path runs."""
-    from topaz_tpu_torch.ops import disk_max as dm, gmm
+    from topaz_tpu_torch.ops import disk_max as dm, gmm, unet_edges
 
     dm.launches = 0
     gmm.launches = 0
+    unet_edges.launches = 0
 
 
 def read_launches(path: str) -> int:
     """Every kernel's launches since ``reset_launches``, just after a path
-    ran: the EM kernel's go to GMM_LAUNCHES[path], the disk max's are
-    returned."""
-    from topaz_tpu_torch.ops import disk_max as dm, gmm
+    ran: the EM kernel's go to GMM_LAUNCHES[path], the U-Net edge kernels'
+    to UNET_EDGE_LAUNCHES[path], the disk max's are returned."""
+    from topaz_tpu_torch.ops import disk_max as dm, gmm, unet_edges
 
     GMM_LAUNCHES[path] = gmm.launches
+    UNET_EDGE_LAUNCHES[path] = unet_edges.launches
     return dm.launches
+
+
+def require_edge_launches(path: str) -> None:
+    """Fail unless ``path``, which runs the U-Net in float32 on the card
+    with no autograd graph, launched the edge kernels (a path that fell back
+    to the modules launches none)."""
+    if not UNET_EDGE_LAUNCHES.get(path):
+        fail(f"{path}: the U-Net's edge kernels launched {UNET_EDGE_LAUNCHES.get(path)} "
+             f"times; its forwards took the modules' route")
 
 
 def max_sm_clock_hz() -> float:
@@ -1022,8 +1151,10 @@ def denoise_step_flops(shape, meta, batch: int) -> int:
 
 def time_unet_forward():
     """Device time of the unet forward on one 4096^2 image, TF32 off as the
-    port runs it, beside its FLOP bound and its peak memory; then the same
-    forward with cudnn.benchmark on, with TF32 and in bf16, for comparison."""
+    port runs it (the fused route: its edge kernels' launches counted, its
+    output bit-equal to the modules' forward, which is timed beside it),
+    beside its FLOP bound and its peak memory; then the same forward with
+    cudnn.benchmark on, with TF32 and in bf16, for comparison."""
     import torch
 
     from topaz_tpu_torch.device import exact_numerics
@@ -1038,15 +1169,26 @@ def time_unet_forward():
     g = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randn((1, 1, SIZE, SIZE), device="cuda", generator=g)
     with torch.inference_mode():
-        model(x)
+        reset_launches()
+        fused = model(x)
+        read_launches("forward")
+        require_edge_launches("forward")
+        if not torch.equal(fused, model._plain(x)):
+            fail("unet forward: the fused route differs from the modules' forward")
+        del fused
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
         peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        plain_ms = cuda_ms(lambda: model._plain(x), iters=5, warmup=1)
+        plain_peak = torch.cuda.max_memory_allocated()
         print(f"# unet forward f32 (TF32 off) {SIZE}x{SIZE}: {ms:.3f} ms a call (CUDA "
-              f"events, 5 calls); bound {bound_ms:.3f} ms ({flops / 1e12:.4f} TFLOP at "
-              f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s), {bound_ms / ms:.3f} of it; peak "
-              f"memory {peak / 2**30:.3f} GiB")
+              f"events, 5 calls; {UNET_EDGE_LAUNCHES['forward']} edge launches); bound "
+              f"{bound_ms:.3f} ms ({flops / 1e12:.4f} TFLOP at {F32_OPS_PER_S / 1e12:.0f} "
+              f"TFLOP/s), {bound_ms / ms:.3f} of it; peak memory {peak / 2**30:.3f} GiB; "
+              f"the modules' forward {plain_ms:.3f} ms, peak {plain_peak / 2**30:.3f} GiB, "
+              f"the same bits")
         if not ms > 0 or peak <= x.numel() * 4:
             fail(f"unet forward timing: {ms} ms, peak memory {peak} B")
         try:
@@ -1069,7 +1211,8 @@ def time_unet_forward():
 def run_denoise(workdir: str):
     """denoise -m unet through the CLI on the card at 4096^2, whole image
     and in the default patches, cold then warm; then card against CPU at
-    512^2 and 1024^2. The denoise path launches no kernel of the port."""
+    512^2 and 1024^2. Of the port's kernels the denoise path launches the
+    U-Net's edge kernels, and no other; returns the disk max's launches."""
     import numpy as np
     import torch
 
@@ -1089,16 +1232,22 @@ def run_denoise(workdir: str):
               f"{time.perf_counter() - t0:.3f} s")
         return mrc.read(os.path.join(out, "raw.mrc"))[0]
 
-    reset_launches()
+    n = gmm_n = 0
     for tag, flags in (("whole", ["-s", "0"]), ("patched", [])):
+        reset_launches()
         for run in ("cold", "warm"):
             y = denoise("0", f"card_{tag}_{run}", flags)
             if y.shape != x.shape or not np.isfinite(y).all() or np.array_equal(y, x):
                 fail(f"denoise {tag} {run}: shape {y.shape}, finite "
                      f"{np.isfinite(y).all()}, equal to the input {np.array_equal(y, x)}")
-    n = read_launches("denoise")
-    print(f"# denoise path: disk_max launches {n}, gmm_em {GMM_LAUNCHES['denoise']} (the "
-          f"path has no kernel of the port's own)")
+        n += read_launches(f"denoise_{tag}")
+        gmm_n += GMM_LAUNCHES[f"denoise_{tag}"]
+    GMM_LAUNCHES["denoise"] = gmm_n
+    print(f"# denoise path: unet_edges launches {UNET_EDGE_LAUNCHES['denoise_whole']} whole "
+          f"image, {UNET_EDGE_LAUNCHES['denoise_patched']} patched (cold and warm each); "
+          f"disk_max {n}, gmm_em {gmm_n}")
+    for tag in ("whole", "patched"):
+        require_edge_launches(f"denoise_{tag}")
     time_unet_forward()
     for factor, flags in ((8, ["-s", "0"]), (4, ["-s", "384", "-p", "128"])):
         side = SIZE // factor
@@ -1110,6 +1259,7 @@ def run_denoise(workdir: str):
               f"{err / cpu.std():.3e} of the output's std")
         if card.shape != (side, side) or not np.isfinite(card).all() or err > 1e-3 * cpu.std():
             fail(f"denoise {side}^2: shape {card.shape}, card vs cpu max abs diff {err}")
+    return n
 
 
 def write_micrographs(workdir: str, rng, geometries, per_geometry: int, prefix: str = "mic"):
@@ -1191,7 +1341,9 @@ def run_pipeline(workdir: str):
         del os.environ["TOPAZ_TIMINGS"]
     n_batches = sum(-(-FILES_PER_GEOMETRY * n // BATCH) for n in (2, 1))
     print(f"# pipeline: disk_max launches in the cold run {launches}, gmm_em "
-          f"{GMM_LAUNCHES['pipeline']} ({n_batches} batches of {BATCH})")
+          f"{GMM_LAUNCHES['pipeline']} ({n_batches} batches of {BATCH}), unet_edges "
+          f"{UNET_EDGE_LAUNCHES['pipeline']}")
+    require_edge_launches("pipeline")
     if launches < 3 * n_batches or launches % 3:
         fail(f"pipeline: disk_max launched {launches} times for {n_batches} batches")
     if GMM_LAUNCHES["pipeline"] != n_batches:
@@ -1976,8 +2128,11 @@ def run_denoise3d(workdir: str):
     print(f"# denoise3d defaults, warm, under torch.profiler: volume wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}")
     launches = read_launches("denoise3d")
+    print(f"# denoise3d: unet_edges launches {UNET_EDGE_LAUNCHES['denoise3d']} (training "
+          f"takes the modules' route, denoising the fused one)")
     if launches:
         fail(f"denoise3d launched disk_max {launches} times")
+    require_edge_launches("denoise3d")
 
     den = Denoise3D(ckpt, device="cuda")
     resident = results["defaults -s 96 -p 48"]
@@ -3097,12 +3252,15 @@ def run_services(workdir: str, device: str = "0"):
     done = re.search(r"warmup: (\d+) programs run once", err)
     n_programs = int(done.group(1)) if done else 0
     print(f"# services: warmup {wall:.3f} s, {n_programs} programs, disk_max launches "
-          f"{launches['warmup']}, gmm_em {GMM_LAUNCHES['warmup']}")
+          f"{launches['warmup']}, gmm_em {GMM_LAUNCHES['warmup']}, unet_edges "
+          f"{UNET_EDGE_LAUNCHES['warmup']}")
     # on the CPU (a rehearsal) the plain versions run: no launches
     if n_programs != 3 * len(SERVICE_GEOMETRIES) or (cuda and min(
             launches["warmup"], GMM_LAUNCHES["warmup"]) <= 0):
         fail(f"warmup: {n_programs} programs, {launches['warmup']} disk_max and "
              f"{GMM_LAUNCHES['warmup']} gmm_em launches")
+    if cuda:
+        require_edge_launches("warmup")
 
     # 2. the service in this process, as serve runs it (the CLI's defaults)
     bodies = {}
@@ -3185,6 +3343,7 @@ def run_services(workdir: str, device: str = "0"):
         reference = Denoise("unet", device=svc_device)
         refs = {}
         service.batch_window = 10.0  # each round in one batch, of its size
+        reset_launches()
         for n in SERVICE_DENOISE_BATCHES:
             service.max_batch = n
             items = [den_paths[j % len(den_paths)] for j in range(n)]
@@ -3219,6 +3378,11 @@ def run_services(workdir: str, device: str = "0"):
             if rel > 1e-3:
                 fail(f"/denoise {n}: {rel} x std from the library call")
         service.batch_window, service.max_batch = 0.02, 8
+        read_launches("serve_denoise")
+        print(f"# services: /denoise rounds and their library references: unet_edges "
+              f"launches {UNET_EDGE_LAUNCHES['serve_denoise']}")
+        if cuda:
+            require_edge_launches("serve_denoise")
 
         health = http_json(base + "/healthz")
         with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
@@ -3430,18 +3594,25 @@ def run_scaleout(workdir: str):
         torch.cuda.synchronize()
         n = read_launches("scaleout" if flag == "-2" else "scaleout_d0")
         out = os.path.join(workdir, f"den{flag}")
+        reset_launches()
         cli(["denoise", "-m", "unet", "-s", "0", "-d", flag, "-o", out, raw])
+        torch.cuda.synchronize()
+        read_launches("scaleout_denoise" if flag == "-2" else "scaleout_denoise_d0")
         runs[flag] = (read_picks(picks), n, mrc.read(os.path.join(out, "raw.mrc"))[0])
     (p0, n0, d0), (p2, n2, d2) = runs["0"], runs["-2"]
     print(f"# scaleout: preprocess -d -2 against --batch-size 2: max abs diff {norm_err}; "
           f"extract -d -2 {len(p2)} "
           f"picks, disk_max launches {n2} (-d 0: {len(p0)}, {n0}); denoise -d -2 "
-          f"bit-identical to -d 0: {np.array_equal(d2, d0)}")
+          f"bit-identical to -d 0: {np.array_equal(d2, d0)}, unet_edges launches "
+          f"{UNET_EDGE_LAUNCHES['scaleout_denoise']} (-d 0: "
+          f"{UNET_EDGE_LAUNCHES['scaleout_denoise_d0']})")
     if not p2 or p2 != p0 or n2 != n0 or n2 < 3:
         fail(f"extract -d -2: {len(p2)} picks, {n2} launches against -d 0's {len(p0)}, "
              f"{n0}; identical {p2 == p0}")
     if not np.array_equal(d2, d0):
         fail(f"denoise -d -2 differs from -d 0 by {np.abs(d2 - d0).max()}")
+    require_edge_launches("scaleout_denoise")
+    require_edge_launches("scaleout_denoise_d0")
 
     # 2. the sharded functions over the card repeated
     picker = load_picker("resnet8_u32", device="cuda")
@@ -3765,10 +3936,11 @@ def main() -> None:
     print(f"# card: {card}")
 
     t = time.perf_counter()
-    build_libraries(["disk_max", "gmm_em"])
+    build_libraries(["disk_max", "gmm_em", "unet_edges"])
     print(f"# kernels built in {time.perf_counter() - t:.2f} s")
 
     err, single, batched, by_radius = check_disk_max()
+    edge_rows = check_unet_edges()
     t = time.perf_counter()
     em_rows, em_buckets = check_gmm_em(), {}
     print(f"# gmm_em check: {time.perf_counter() - t:.1f} s")
@@ -3782,8 +3954,7 @@ def main() -> None:
             print(f"# slice phase: {time.perf_counter() - t:.1f} s")
             if want("denoise"):
                 t = time.perf_counter()
-                run_denoise(workdir)
-                launches["denoise"] = 0
+                launches["denoise"] = run_denoise(workdir)
                 print(f"# denoise phase: {time.perf_counter() - t:.1f} s")
     if want("pipeline"):
         with tempfile.TemporaryDirectory() as workdir:
@@ -3916,6 +4087,17 @@ def main() -> None:
         "real": {name: {k: r[k] for k in brief + ("selected_card_vs_cpu",) if k in r}
                  for name, r in em_buckets.items()},
         "cases": [{"tag": r["tag"], **{k: r[k] for k in brief}} for r in em_rows],
+    })
+    kernels.append({
+        "name": "unet_edges", "route": "cuda", "source": "topaz_tpu_torch/csrc/unet_edges.cu",
+        "replaces": None, "launches": UNET_EDGE_LAUNCHES.get("denoise_whole"),
+        "launches_per_forward": UNET_EDGE_LAUNCHES.get("forward"),
+        "launches_by_path": {path: UNET_EDGE_LAUNCHES.get(path) for path in (
+            "denoise_whole", "denoise_patched", "pipeline", "denoise3d", "denoise_train",
+            "train3d", "warmup", "serve", "serve_denoise", "watch", "scaleout_denoise",
+            "scaleout_denoise_d0", "scaleout_mesh_pipeline")},
+        "ms": edge_rows[0]["ms"], "library_ms": edge_rows[0]["library_ms"],
+        "bound_ms": edge_rows[0]["bound_ms"], "bound_by": "bytes", "cases": edge_rows,
     })
     print(json.dumps({"kernels": kernels}))
     print(card)

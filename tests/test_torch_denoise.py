@@ -35,6 +35,7 @@ from topaz_tpu_torch.models import denoise as tmodels
 from topaz_tpu_torch.models import denoise_factory as tfactory
 from topaz_tpu_torch.ops import filters as tfilters
 from topaz_tpu_torch.ops import fourier as tfourier
+from topaz_tpu_torch.ops import unet_edges as tedges
 from topaz_tpu_torch.utils.batching import iterate_prefetched
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -113,15 +114,15 @@ def test_nearest_index_rule_matches_jax(monkeypatch):
 
     for n_in, n_out in ((3, 6), (16, 33), (45, 91), (33, 67), (40, 40), (7, 3)):
         src = np.arange(n_in, dtype=np.float32)
-        np.testing.assert_array_equal(src[tmodels.nearest_index(n_in, n_out).numpy()],
+        np.testing.assert_array_equal(src[tedges.nearest_index(n_in, n_out).numpy()],
                                       up(jnp.asarray(src), n_out))
     monkeypatch.setattr(jmodels, "jnp", np)
     for n_in in range(1, 41):
         src = np.arange(n_in, dtype=np.float32)
         for n_out in range(1, 41):
             want = up(src, n_out)
-            np.testing.assert_array_equal(src[tmodels.nearest_index(n_in, n_out).numpy()], want)
-            got = tmodels.up_nearest(torch.from_numpy(src)[None, None, :, None], (n_out, 1))
+            np.testing.assert_array_equal(src[tedges.nearest_index(n_in, n_out).numpy()], want)
+            got = tedges.up_nearest(torch.from_numpy(src)[None, None, :, None], (n_out, 1))
             np.testing.assert_array_equal(got[0, 0, :, 0].numpy(), want)
 
 

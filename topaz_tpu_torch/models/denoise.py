@@ -19,11 +19,19 @@ floor); the decoder is the plain form: nearest upsample with the integer
 source-index rule on every spatial axis, concatenate ``[up(h), skip]`` on
 the channel axis, convolve. The 3D U-Net's one-channel convolutions (its
 first and last) run as ``TapConv3d`` where they fit.
+
+Where no autograd graph is needed and input and weights are float32 on a
+card, ``UDenoiseNet`` runs each convolution without its bias and each edge
+to the next convolution as one hand-written pass (``ops/unet_edges``: bias
+and leaky ReLU, then the pool or the upsample into the concat), the same
+float operations in the same order, so the same bits; anything else runs
+the modules. ``fused_forwards`` and ``plain_forwards`` count the two routes.
 """
 
 from __future__ import annotations
 
 import itertools
+import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -31,7 +39,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-LEAK = 0.1
+from topaz_tpu_torch.ops import unet_edges as edges
+from topaz_tpu_torch.ops.unet_edges import LEAK, up_nearest
+
+# UDenoiseNet forwards on the fused route and on the modules' route in this
+# process; callers may reset each to 0
+fused_forwards = 0
+plain_forwards = 0
+_lock = threading.Lock()  # the counters, from a mesh's threads too
 
 
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
@@ -64,7 +79,9 @@ class TapConv3d(nn.Conv3d):
                              f"padding {padding}")
         super().__init__(in_channels, out_channels, kernel_size, padding=padding)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _conv_forward(self, x: torch.Tensor, weight: torch.Tensor, bias) -> torch.Tensor:
+        # nn.Conv3d.forward's hook, so that the fused route can run either
+        # form without its bias
         k = self.kernel_size[0]
         p = k // 2
         N, _, D, H, W = x.shape
@@ -72,14 +89,15 @@ class TapConv3d(nn.Conv3d):
             xp = F.pad(x, (0, 0, p, p, p, p))
             shifts = torch.cat([xp[:, :, dz:dz + D, dy:dy + H] for dz in range(k)
                                 for dy in range(k)], dim=1)
-            return F.conv3d(shifts, self.weight.reshape(self.out_channels, k * k, 1, 1, k),
-                            self.bias, padding=(0, 0, p))
-        taps = self.weight[0].permute(1, 2, 3, 0).reshape(1, k ** 3, self.in_channels)
+            return F.conv3d(shifts, weight.reshape(self.out_channels, k * k, 1, 1, k),
+                            bias, padding=(0, 0, p))
+        taps = weight[0].permute(1, 2, 3, 0).reshape(1, k ** 3, self.in_channels)
         # bmm: the same product through matmul (a matrix times a batch) made
         # this layer 7.1 ms in place of 2.6 (H100, a 192^3 window)
         t = F.pad(torch.bmm(taps.expand(N, -1, -1), x.reshape(N, self.in_channels, -1)).reshape(
             N, k ** 3, D, H, W), (p,) * 6)
-        y = self.bias.reshape(1, 1, 1, 1, 1) + t[:, :1, :D, :H, :W]
+        y = t[:, :1, :D, :H, :W].clone() if bias is None else (
+            bias.reshape(1, 1, 1, 1, 1) + t[:, :1, :D, :H, :W])
         for o, (dz, dy, dx) in enumerate(itertools.product(range(k), repeat=3)):
             if o:
                 y += t[:, o:o + 1, dz:dz + D, dy:dy + H, dx:dx + W]
@@ -90,25 +108,27 @@ def _lrelu() -> nn.LeakyReLU:
     return nn.LeakyReLU(LEAK)
 
 
-def nearest_index(n_in: int, n_out: int, device=None) -> torch.Tensor:
-    """Source index of each output position of a nearest resize,
-    ``(j * n_in) // n_out`` in integers (topaz_tpu/models/denoise.py:227-248).
-    ``F.interpolate(mode='nearest')`` computes a float scale instead, which
-    picks another source row for some odd sizes."""
-    return (torch.arange(n_out, device=device) * n_in) // n_out
-
-
-def up_nearest(x: torch.Tensor, size: Tuple[int, ...]) -> torch.Tensor:
-    """Nearest resize of the last ``len(size)`` axes of ``x`` to ``size``."""
-    for axis, n_out in zip(range(-len(size), 0), size):
-        n_in = x.shape[axis]
-        if n_in != n_out:
-            x = x.index_select(axis, nearest_index(n_in, n_out, x.device))
-    return x
-
-
 def _up_cat(h: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     return torch.cat([up_nearest(h, skip.shape[2:]), skip], dim=1)
+
+
+def _unbiased(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``conv``'s output before its bias: on a card the same cuDNN call,
+    whose bias PyTorch adds afterwards as a pass of its own."""
+    return conv._conv_forward(x, conv.weight, None)
+
+
+def fused_route(x: torch.Tensor, params) -> bool:
+    """Whether a U-Net forward on ``x`` with parameters ``params`` runs on
+    the fused route: ``x`` a float32 CUDA tensor, every parameter float32 in
+    the standard layout (so cuDNN's outputs are too), and no autograd graph
+    to build (gradients off, or nothing that requires one)."""
+    if not (x.is_cuda and x.dtype == torch.float32):
+        return False
+    if not all(p.dtype == torch.float32 and p.is_contiguous() for p in params):
+        return False
+    return not (torch.is_grad_enabled()
+                and (x.requires_grad or any(p.requires_grad for p in params)))
 
 
 class UDenoiseNet(nn.Module):
@@ -147,6 +167,17 @@ class UDenoiseNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(N, 1, *spatial) -> (N, 1, *spatial)."""
+        fused = fused_route(x, list(self.parameters()))
+        global fused_forwards, plain_forwards
+        with _lock:
+            if fused:
+                fused_forwards += 1
+            else:
+                plain_forwards += 1
+        return self._fused(x) if fused else self._plain(x)
+
+    def _plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward through the modules."""
         L = self.levels
         skips = [x]
         for i in range(1, L + 1):
@@ -156,6 +187,35 @@ class UDenoiseNet(nn.Module):
             skip = skips.pop()
             h = up_nearest(h, skip.shape[2:]) if d in self.skipless else _up_cat(h, skip)
             h = getattr(self, f"dec{d}")(h)
+        return x - h if self.residual else h
+
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward with each convolution run without its bias and each
+        edge to the next convolution one pass of ``ops/unet_edges``: the
+        bias and leaky ReLU, then the pool, or the upsample into the concat
+        with the skip, or nothing; the 3D U-Net's last layer (taps) as its
+        module. The modules' bits, on a card."""
+        L = self.levels
+        x = x.contiguous()
+        skips = [x]
+        for i in range(1, L + 1):
+            conv = getattr(self, f"enc{i}")[0]
+            skips.append(edges.bias_lrelu_pool(_unbiased(conv, skips[-1]), conv.bias))
+        conv = getattr(self, f"enc{L + 1}")[0]
+        h, bias = _unbiased(conv, skips.pop()), conv.bias
+        for d in range(L, 0, -1):
+            skip = skips.pop()
+            h = edges.bias_lrelu_up_cat(h, bias, None if d in self.skipless else skip,
+                                        skip.shape[2:])
+            dec = getattr(self, f"dec{d}")
+            h = edges.bias_lrelu_(_unbiased(dec[0], h), dec[0].bias)
+            h, bias = _unbiased(dec[2], h), dec[2].bias
+        h = edges.bias_lrelu_(h, bias)
+        last = self.dec1[4]
+        if isinstance(last, TapConv3d):
+            h = last(h)
+        else:
+            h = edges.bias_lrelu_(_unbiased(last, h), last.bias, leaky=False)
         return x - h if self.residual else h
 
 
