@@ -140,9 +140,11 @@ Phases, in order; any failure exits non-zero before a result is printed:
 11. 3D picking (``run_extract3d``): a 3D resnet8 at units 32, its weights
    drawn from seed 0, saved as .npz; a 192 x 384 x 384 tomogram of planted
    blobs scored in 32 tiles of 166^3 (wall and device time against the
-   FLOP bound, peak memory), the sphere-max NMS alone at r = 8, then
+   FLOP bound, peak memory), ``extract.pick_volume`` at r = 8 (the CLI's
+   and the benchmark's path; its picks equal the sphere-max NMS of the
+   scored map, whose time its ``extract3d/nms`` span gives), then
    ``extract --dims 3 -r 8`` through the CLI (``z_coord`` column, picks
-   against the library run's). Card against CPU on a 48 x 96 x 96 crop
+   against ``pick_volume``'s). Card against CPU on a 48 x 96 x 96 crop
    (one tile): scores within ``PIPELINE_TOL`` x max(1, |score|), picks
    equal but at near-ties, ``--targets --only-validate`` AUPRC within
    1e-3. The phase must launch no disk_max: the 3D path has no TPU kernel.
@@ -2443,7 +2445,9 @@ def run_extract3d(workdir: str):
     """Phase 12: a 3D resnet8 at units 32 (random weights from a seed) saved
     as .npz and run by ``extract --dims 3`` on a 192 x 384 x 384 tomogram
     of planted blobs: dense scoring (32 tiles of 166^3) alone against its
-    FLOP bound, the sphere-max NMS alone, the CLI; card against CPU on one
+    FLOP bound, ``extract.pick_volume`` (the CLI's path; its sphere-max NMS
+    from its span) against NMS of the scored map, the CLI against
+    ``pick_volume``'s picks; card against CPU on one
     tile's volume, ``--targets --only-validate`` included. Returns the
     disk_max launches of the phase (the 3D path has no TPU kernel)."""
     import numpy as np
@@ -2455,6 +2459,7 @@ def run_extract3d(workdir: str):
     from topaz_tpu_torch.models.factory import new_picker, save_picker
     from topaz_tpu_torch.models.tiling import classify_patches_3d
     from topaz_tpu_torch.ops import nms
+    from topaz_tpu_torch.utils import profiling
 
     (tomo, _), centers = write_tomograms(workdir, TOMO_SHAPE, "pick3d")
     model = new_picker("resnet8", units=32, dims=3, seed=SEED, device="cuda")
@@ -2492,10 +2497,16 @@ def run_extract3d(workdir: str):
     rounds = nms.rounds
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    s, c = nms.non_maximum_suppression_3d(score, 8, threshold=threshold, device="cuda")
-    nms_ms = (time.perf_counter() - t0) * 1e3
-    print(f"# extract3d sphere-max NMS r=8 alone: {nms_ms:.3f} ms, {nms.rounds - rounds} greedy "
+    s, c = ex.pick_volume(model, vol, 8, threshold)  # the path extract --dims 3 takes
+    pick_ms = (time.perf_counter() - t0) * 1e3
+    nms_ms = profiling.samples("extract3d/nms")[-1] * 1e3
+    print(f"# extract3d pick_volume r=8: {pick_ms:.3f} ms, of it the sphere-max NMS "
+          f"{nms_ms:.3f} ms (its span, synchronised each round), {nms.rounds - rounds} greedy "
           f"rounds, {len(s)} picks above {threshold!r}")
+    s_map, c_map = nms.non_maximum_suppression_3d(score, 8, threshold=threshold, device="cuda")
+    if not (np.array_equal(s, s_map) and np.array_equal(c, c_map)):
+        fail(f"extract3d: pick_volume's {len(s)} picks differ from NMS of the scored map's "
+             f"{len(s_map)}")
 
     picks = os.path.join(workdir, "picks3d.txt")
     t0 = time.perf_counter()
@@ -2507,9 +2518,9 @@ def run_extract3d(workdir: str):
         rows = [line.rstrip("\n").split("\t") for line in f]
     got = {tuple(int(v) for v in r[1:4]): float(r[4]) for r in rows}
     err = compare_picks(got, picks_of(s, c), tie=PIPELINE_TOL, relative=True, radius=8,
-                        threshold=threshold, labels=("CLI", "library"))
-    print(f"# extract3d: extract --dims 3 -r 8 CLI {dt:.3f} s, {len(rows)} picks; against the "
-          f"library run max score diff {err:.3e}")
+                        threshold=threshold, labels=("CLI", "pick_volume"))
+    print(f"# extract3d: extract --dims 3 -r 8 CLI {dt:.3f} s, {len(rows)} picks; against "
+          f"pick_volume's max score diff {err:.3e}")
     in_range = all(0 <= x < vol.shape[2] and 0 <= y < vol.shape[1] and 0 <= z < vol.shape[0]
                    for x, y, z in got)
     if (header != ["image_name", "x_coord", "y_coord", "z_coord", "score"] or not rows

@@ -280,8 +280,8 @@ def test_denoise_bf16_with_devices_takes_the_halo_route_in_bf16():
 
 
 def test_denoise3d_patches_with_devices_match_one_device():
-    """``Denoise3D`` with two devices streams its patch batches split over
-    them (the resident route is off, as in JAX): equal to one device's
+    """``Denoise3D`` with two devices shares a resident volume's patches out
+    over them, each device holding the volume: equal to one device's
     patches within 1e-5 x std."""
     from topaz_tpu_torch.denoise import Denoise3D
 
@@ -291,8 +291,53 @@ def test_denoise3d_patches_with_devices_match_one_device():
                               seed=0)
     want = one.denoise(vol, patch_size=16, padding=8, batch_size=3, verbose=False)
     got = two.denoise(vol, patch_size=16, padding=8, batch_size=3, verbose=False)
-    assert one.last_route == "resident" and two.last_route == "streaming"
+    assert one.last_route == "resident" and two.last_route == "resident"
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * vol.std())
+
+
+@pytest.mark.parametrize("devices", [2, 3])
+def test_denoise3d_streamed_patches_with_devices_match_one_device(devices):
+    """With the resident route off, ``Denoise3D`` streams its patch batches
+    split over the devices (the batch grown to a multiple of their count):
+    equal to one device's streamed patches within 1e-5 x std."""
+    from topaz_tpu_torch.denoise import Denoise3D
+
+    vol = np.random.default_rng(7).normal(size=(40, 36, 36)).astype(np.float32)
+    one = Denoise3D.from_arch("unet", device="cpu", nf=4, base_width=7, seed=0)
+    many = Denoise3D.from_arch("unet", device="cpu", devices=[CPU] * devices, nf=4,
+                               base_width=7, seed=0)
+    kw = dict(patch_size=16, padding=8, batch_size=1, verbose=False, device_resident=False)
+    want = one.denoise(vol, **kw)
+    got = many.denoise(vol, **kw)
+    assert one.last_route == "streaming" and many.last_route == "streaming"
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * vol.std())
+
+
+@pytest.mark.parametrize("devices", [3, 4])
+def test_denoise3d_resident_share_with_devices_spans_and_counts(devices):
+    """Each device of a resident split records its upload and fetch and its
+    share of the patches (27 patches of 16 over 3 or 4 devices); the
+    volume counts once, as resident; equal to one device's output."""
+    from topaz_tpu_torch import denoise
+    from topaz_tpu_torch.denoise import Denoise3D
+    from topaz_tpu_torch.utils import profiling
+
+    vol = np.random.default_rng(8).normal(size=(40, 36, 36)).astype(np.float32)
+    one = Denoise3D.from_arch("unet", device="cpu", nf=4, base_width=7, seed=0)
+    many = Denoise3D.from_arch("unet", device="cpu", devices=[CPU] * devices, nf=4,
+                               base_width=7, seed=0)
+    want = one.denoise(vol, patch_size=16, padding=8, verbose=False)
+    profiling.reset()
+    before = (denoise.resident_volumes, denoise.patches_denoised)
+    got = many.denoise(vol, patch_size=16, padding=8, verbose=False)
+    assert many.last_route == "resident"
+    assert (denoise.resident_volumes - before[0], denoise.patches_denoised - before[1]) == (1, 27)
+    assert [profiling.count(f"denoise3d/{n}") for n in ("upload", "patch", "unet", "fetch")] \
+        == [devices, 27, 27, devices]
+    threads = {r.thread for r in profiling.records("denoise3d/patch")}
+    assert len(threads) == devices  # a thread a device
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * vol.std())
+    profiling.reset()
 
 
 def test_denoiser_training_with_devices_matches_one_device(tmp_path):

@@ -16,10 +16,11 @@ population ones (ddof 0), as in numpy and JAX.
 Tomograms (``Denoise3D``) take the volume's statistics, then each padded
 patch's own. Up to ``_DEVICE_RESIDENT_CAP`` bytes the volume is uploaded
 and zero-padded once, every patch is cut and written back on the device
-and the result is fetched once; larger volumes, or a resident run that
-exhausts device memory, stream batches of host-cut patches instead. Each
-route records ``denoise3d/*`` stage spans and counts its work in this
-module's counters (``patches_denoised`` and the rest).
+and the result is fetched once; with several devices each holds the volume
+and denoises an equal share of the patches. Larger volumes, or a resident
+run that exhausts device memory, stream batches of host-cut patches
+instead. Each route records ``denoise3d/*`` stage spans and counts its work
+in this module's counters (``patches_denoised`` and the rest).
 Training (``train_denoiser``) runs an eager autograd step a batch and keeps
 the losses on the device until the epoch ends.
 
@@ -27,7 +28,8 @@ With several ``devices`` (``-d -2``, parallel/devices.py) whole images and
 tomograms are denoised split by rows over them with halos
 (parallel/mesh.make_halo_denoiser), frame batches, 3D patch batches and
 training batches are split over them with a copy of the model on each, as
-the JAX package shards them over its mesh.
+the JAX package shards them over its mesh; a resident tomogram's patches
+are shared out over them (the JAX package streams those).
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ from topaz_tpu_torch.models.denoise_factory import (
 )
 from topaz_tpu_torch.ops import fourier
 from topaz_tpu_torch.parallel.devices import data_mesh_for, resolve_devices
-from topaz_tpu_torch.parallel.mesh import (make_halo_denoiser, make_mesh, replicas,
+from topaz_tpu_torch.parallel.mesh import (make_halo_denoiser, make_mesh, replicas, run_each,
                                            split_apply, summed_grads, sync_replicas)
 from topaz_tpu_torch.ops.filters import (
     apply_kernel,
@@ -349,18 +351,24 @@ class Denoise3D(Denoise):
         """Patch denoising with the volume resident on the device: upload
         and zero-pad it once, cut each padded patch there, apply the volume's
         and the patch's statistics, write the patch's centre into a device
-        output, and fetch it once. Returns None (the caller streams) with
-        several devices (the streaming route splits its batches over them),
-        over the residency cap or when the device runs out of memory."""
-        if data_mesh_for(self.devices) is not None or tomo.nbytes > self._DEVICE_RESIDENT_CAP:
+        output, and fetch it once. With several devices each holds the
+        volume and denoises its share of the patches (``_resident_split``).
+        Returns None (the caller streams) over the residency cap or when a
+        device runs out of memory."""
+        if tomo.nbytes > self._DEVICE_RESIDENT_CAP:
             return None
         s, p = patch_size, padding
         ext = [-(-int(n) // s) * s for n in tomo.shape]
         origins = [(i, j, k) for i in range(0, ext[0], s) for j in range(0, ext[1], s)
                    for k in range(0, ext[2], s)]
+        mesh = data_mesh_for(self.devices)
         if verbose:
-            print(f"# device-resident: {len(origins)} patches of {s + 2 * p}^3", file=sys.stderr)
+            print(f"# device-resident: {len(origins)} patches of {s + 2 * p}^3"
+                  + (f" over {len(mesh.data_devices)} devices" if mesh is not None else ""),
+                  file=sys.stderr)
         try:
+            if mesh is not None:
+                return self._resident_split(tomo, s, p, ext, origins, mesh.data_devices)
             return self._resident_run(tomo, s, p, ext, origins)
         except torch.cuda.OutOfMemoryError:
             pass  # the failed run's tensors go with its frame
@@ -370,31 +378,64 @@ class Denoise3D(Denoise):
                   file=sys.stderr)
         return None
 
-    def _resident_run(self, tomo, s, p, ext, origins) -> np.ndarray:
-        """The resident route's work, in stage spans: ``denoise3d/upload``
-        (the volume, its statistics and its zero-padded copy), one
-        ``denoise3d/patch`` a patch (cut, the volume's normalisation, the
-        centre written back) around its ``denoise3d/unet`` forward, and
-        ``denoise3d/fetch``."""
+    def _resident_patches(self, tomo, s, p, ext, origins, device, model, put) -> None:
+        """The resident route's work on ``device``, in stage spans:
+        ``denoise3d/upload`` (the volume, its statistics and its zero-padded
+        copy), then one ``denoise3d/patch`` a patch of ``origins`` (cut, the
+        volume's normalisation, the centre handed to ``put(origin,
+        centre)``) around its ``denoise3d/unet`` forward by ``model``."""
         d = s + 2 * p
-        shape = tomo.shape
         pad = []
-        for e, n in zip(reversed(ext), reversed(shape)):  # F.pad lists the last axis first
+        for e, n in zip(reversed(ext), reversed(tomo.shape)):  # F.pad lists the last axis first
             pad += [p, p + e - n]
-        with stage("denoise3d/upload", device=self.device):
-            vol = as_device_tensor(tomo, self.device)
+        with stage("denoise3d/upload", device=device):
+            vol = as_device_tensor(tomo, device)
             mu, std = vol.mean(), _std(vol)
             volp = F.pad(vol, pad)  # zero fill, as the streaming route's patches
-        out = torch.empty(ext, device=self.device)
         for i, j, k in origins:
-            with stage("denoise3d/patch", device=self.device):
+            with stage("denoise3d/patch", device=device):
                 xn = (volp[i:i + d, j:j + d, k:k + d] - mu) / std
-                with stage("denoise3d/unet", device=self.device):
-                    y = self._normalized_forward(xn[None])[0]
-                out[i:i + s, j:j + s, k:k + s] = y[p:p + s, p:p + s, p:p + s] * std + mu
+                with stage("denoise3d/unet", device=device):
+                    y = self._normalized_forward(xn[None], model)[0]
+                put((i, j, k), y[p:p + s, p:p + s, p:p + s] * std + mu)
+
+    def _resident_run(self, tomo, s, p, ext, origins) -> np.ndarray:
+        """The resident route on one device: ``_resident_patches`` into a
+        device output, then ``denoise3d/fetch``."""
+        shape = tomo.shape
+        out = torch.empty(ext, device=self.device)
+
+        def put(o, centre):
+            out[o[0]:o[0] + s, o[1]:o[1] + s, o[2]:o[2] + s] = centre
+
+        self._resident_patches(tomo, s, p, ext, origins, self.device, self.model, put)
         with stage("denoise3d/fetch"):
             out = to_host(out[:shape[0], :shape[1], :shape[2]].contiguous())
-        _count_volume("resident", len(origins), len(origins) * d ** 3, out.size)
+        _count_volume("resident", len(origins), len(origins) * (s + 2 * p) ** 3, out.size)
+        return out
+
+    def _resident_split(self, tomo, s, p, ext, origins, devices) -> np.ndarray:
+        """The resident route over several devices: each takes an equal run
+        of the patches on a thread of its own (``run_each``) with its copy
+        of the model, holds the volume, stacks its centres and fetches them
+        in one ``denoise3d/fetch``; the host stitches them."""
+        reps = replicas(self.model, devices, self._copies)
+        shares = np.array_split(np.arange(len(origins)), len(devices))
+
+        def work(r, device):
+            centres = []
+            self._resident_patches(tomo, s, p, ext, [origins[n] for n in shares[r]], device,
+                                   reps[r], lambda o, centre: centres.append(centre))
+            with stage("denoise3d/fetch"):
+                return to_host(torch.stack(centres))
+
+        out = np.empty(tomo.shape, dtype=np.float32)
+        for share, ys in zip(shares, run_each(work, devices, [()] * len(devices))):
+            for n, y in zip(share, ys):
+                i, j, k = origins[n]
+                dst = out[i:i + s, j:j + s, k:k + s]
+                dst[...] = y[:dst.shape[0], :dst.shape[1], :dst.shape[2]]
+        _count_volume("resident", len(origins), len(origins) * (s + 2 * p) ** 3, out.size)
         return out
 
     def _denoise_streaming(self, tomo: np.ndarray, patch_size: int, padding: int,
@@ -492,8 +533,7 @@ class Denoise3D(Denoise):
                 return out
             if device_resident:
                 raise ValueError("device_resident=True requested but the volume cannot stay "
-                                 "resident (several devices, over the residency cap or out "
-                                 "of device memory)")
+                                 "resident (over the residency cap or out of device memory)")
         self.last_route = "streaming"
         return self._denoise_streaming(tomo, patch_size, padding, batch_size, volume_num,
                                        total_volumes, verbose)
@@ -937,7 +977,8 @@ def denoise3d_main(args):
     """topaz denoise3d (topaz/commands/denoise3d.py:88-130): with -a/-b,
     train (the -m model if it loads, else a fresh 3D unet) on even/odd tile
     pairs; then denoise the volumes. With several devices (-d -2, the
-    default) training batches and patch batches are split over them."""
+    default) training batches are split over them, and a volume's patches
+    too (each device holding the volume, or batches of streamed ones)."""
     devices = resolve_devices(args.device)
     device = devices[0]
     if len(devices) > 1:

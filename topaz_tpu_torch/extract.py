@@ -16,6 +16,13 @@ at the given radius, and the picks are matched to the targets on the host
 (the file's base name without extension), the name the targets carry; the
 JAX package keys them by path, so no target matches there.
 
+A tomogram's picks come from ``pick_volume``, the one entry that the
+``--dims 3`` route and in-process callers share: 96^3 tiles scored, then
+the sphere NMS rounds on the device, with its stage spans (``extract3d/
+tile``, ``score``, ``nms``, ``fetch``) and counters (this module's
+``volumes_picked`` and ``output_voxels``, models/tiling.py's
+``tiles_scored`` and ``network_voxels``).
+
 Output is the single table (image_name, x_coord, y_coord[, z_coord], score)
 on stdout or in one file, or one file a micrograph in the coord, star, box,
 json or csv format.
@@ -34,9 +41,15 @@ from topaz_tpu_torch.device import resolve_device
 from topaz_tpu_torch.parallel.devices import hybrid_mesh_for, resolve_devices
 from topaz_tpu_torch.io.coordinates import Coordinates, read_coordinates, write_table
 from topaz_tpu_torch.io.image import load_image
+from topaz_tpu_torch.models.picker import Picker
 from topaz_tpu_torch.ops.metrics import average_precision, match_coordinates
 from topaz_tpu_torch.ops.nms import non_maximum_suppression, non_maximum_suppression_3d
 from topaz_tpu_torch.utils.printing import report
+
+# pick_volume's work in this process: tomograms picked and voxels of their
+# score maps; callers may reset each to 0
+volumes_picked = 0
+output_voxels = 0
 
 
 def stream_inputs(f: TextIO) -> Iterator[str]:
@@ -52,14 +65,11 @@ def image_name(path: str) -> str:
     return os.path.splitext(os.path.basename(path))[0]
 
 
-def score_images(model: Optional[str], paths: Iterable[str], patch_size: int = 0,
-                 device="cuda") -> Iterator[Tuple[str, torch.Tensor]]:
-    """Yield (path, dense score map on ``device``) per micrograph
-    (topaz_tpu/extract.py:38-80): whole-image scoring, or tiles of
-    ``patch_size`` (``predict_in_patches``); a 3D volume goes through
-    ``classify_patches_3d``. ``model='none'`` passes images through as
-    already-computed score maps."""
-    device = resolve_device(device)
+def _images(model: Optional[str], paths: Iterable[str],
+            device) -> Iterator[Tuple[str, Optional[Picker], np.ndarray]]:
+    """(path, picker, image) per micrograph or tomogram, the picker loaded
+    once (None for ``model`` None or 'none') and each image's dimensions
+    checked against it."""
     picker = None
     if model is not None and model != "none":
         from topaz_tpu_torch.models.factory import load_picker
@@ -68,23 +78,61 @@ def score_images(model: Optional[str], paths: Iterable[str], patch_size: int = 0
     for path in paths:
         # a copy: arrays read from files are read-only
         image = np.array(load_image(path), dtype=np.float32)
-        if picker is None:
-            yield path, torch.from_numpy(image).to(device)
-            continue
-        if image.ndim != picker.spec.dims:
+        if picker is not None and image.ndim != picker.spec.dims:
             raise ValueError(f"{path}: a {image.ndim}D image for a {picker.spec.dims}D "
                              f"picker (--dims {image.ndim} needs a {image.ndim}D model)")
-        if image.ndim == 3:
-            from topaz_tpu_torch.models.tiling import classify_patches_3d
+        yield path, picker, image
 
-            yield path, classify_patches_3d(picker, image)
-        elif patch_size:
-            from topaz_tpu_torch.models.tiling import predict_in_patches
 
-            yield path, predict_in_patches(picker, image, patch_size)
-        else:
-            with torch.inference_mode():
-                yield path, picker(torch.from_numpy(image).to(device)[None])[0]
+def _score(picker: Optional[Picker], image: np.ndarray, patch_size: int,
+           device) -> torch.Tensor:
+    if picker is None:
+        return torch.from_numpy(image).to(device)
+    if image.ndim == 3:
+        from topaz_tpu_torch.models.tiling import classify_patches_3d
+
+        return classify_patches_3d(picker, image)
+    if patch_size:
+        from topaz_tpu_torch.models.tiling import predict_in_patches
+
+        return predict_in_patches(picker, image, patch_size)
+    with torch.inference_mode():
+        return picker(torch.from_numpy(image).to(device)[None])[0]
+
+
+def score_images(model: Optional[str], paths: Iterable[str], patch_size: int = 0,
+                 device="cuda") -> Iterator[Tuple[str, torch.Tensor]]:
+    """Yield (path, dense score map on ``device``) per micrograph
+    (topaz_tpu/extract.py:38-80): whole-image scoring, or tiles of
+    ``patch_size`` (``predict_in_patches``); a 3D volume goes through
+    ``classify_patches_3d``. ``model='none'`` passes images through as
+    already-computed score maps."""
+    device = resolve_device(device)
+    for path, picker, image in _images(model, paths, device):
+        yield path, _score(picker, image, patch_size, device)
+
+
+def pick_volume(picker: Picker, volume: np.ndarray, radius: int, threshold: float,
+                patch_size: int = 96, batch_size: int = 1) -> Tuple[np.ndarray, np.ndarray]:
+    """One (D, H, W) tomogram's picks with a 3D ``picker``: dense scoring in
+    ``patch_size``^3 tiles of ``batch_size`` windows (``classify_patches_3d``,
+    spans ``extract3d/tile`` and ``extract3d/score``), then greedy sphere NMS
+    at ``radius`` above ``threshold`` on the picker's device
+    (``non_maximum_suppression_3d``, spans ``extract3d/nms`` and
+    ``extract3d/fetch``). Returns (scores, coords[x, y, z]) on the host,
+    sorted by descending score."""
+    from topaz_tpu_torch.models.tiling import classify_patches_3d
+
+    global volumes_picked, output_voxels
+    volume = np.asarray(volume, dtype=np.float32)
+    if volume.ndim != 3 or picker.spec.dims != 3:
+        raise ValueError(f"pick_volume takes a 3D volume and a 3D picker, got a "
+                         f"{volume.ndim}D volume and a {picker.spec.dims}D picker")
+    score = classify_patches_3d(picker, volume, patch_size, batch_size)
+    picks = non_maximum_suppression_3d(score, radius, threshold=threshold, device=score.device)
+    volumes_picked += 1
+    output_voxels += score.numel()
+    return picks
 
 
 def iterate_score_target_pairs(scores: Dict[str, torch.Tensor], targets: Coordinates,
@@ -270,10 +318,10 @@ def extract_particles(
         report("Extraction complete")
         return
 
-    stream = score_images(model, paths, patch_size=patch_size, device=device)
+    images = _images(model, paths, device)
     if targets is not None:
-        scores = {image_name(path): score for path, score in stream}
-        stream = ((path, scores[image_name(path)]) for path in paths)
+        scores = {image_name(path): _score(picker, image, patch_size, device)
+                  for path, picker, image in images}
         table = read_coordinates(targets)
         names = dict.fromkeys(table.image_name.tolist())
         target_scores = {name: scores[name] for name in names if name in scores}
@@ -300,6 +348,13 @@ def extract_particles(
             return non_maximum_suppression(score, radius, threshold=threshold, device=device)
         return non_maximum_suppression_3d(score, radius, threshold=threshold, device=device)
 
-    _write_picks(((path, *nms(score)) for path, score in stream), output, per_micrograph,
-                 suffix, out_format, scale, dims, verbose)
+    def pick(path, picker, image):
+        # a tomogram's picks need no kept score map
+        if dims == 3 and picker is not None:
+            return (path, *pick_volume(picker, image, radius, threshold))
+        return (path, *nms(_score(picker, image, patch_size, device)))
+
+    picks = (((path, *nms(scores[image_name(path)])) for path in paths) if targets is not None
+             else (pick(*item) for item in images))
+    _write_picks(picks, output, per_micrograph, suffix, out_format, scale, dims, verbose)
     report("Extraction complete")

@@ -13,7 +13,9 @@ filter is the CUDA kernel of ops/disk_max.py; ``disk_max`` here is its
 plain version, used for tensors on the CPU and as the kernel's reference.
 The 3D ``sphere_max`` was XLA ops on the TPU, not a Pallas kernel, and is
 plain PyTorch on every device. The accepted peaks are gathered and sorted
-on the score map's device; only they come back to the host.
+on the score map's device; only they come back to the host. The 3D entry
+point records its rounds in an ``extract3d/nms`` stage span and the peaks'
+way to the host in ``extract3d/fetch``; the 2D ones record none.
 ``exact_non_maximum_suppression`` takes the peaks one at a time in the
 literal greedy order, the rounds' oracle.
 """
@@ -25,6 +27,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from topaz_tpu_torch.utils.profiling import stage
 
 NEG = float("-inf")
 INT_NEG = -(2**31)
@@ -294,11 +298,14 @@ def non_maximum_suppression_3d(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """3D NMS (topaz_tpu/ops/nms.py:211-226, topaz/algorithms.py:66-103):
     the radius is ``scale * r``; returns (scores, coords[x, y, z]) sorted by
-    descending score. The rounds run on ``device``."""
+    descending score. The rounds run on ``device``, in an ``extract3d/nms``
+    stage span, and the sorted peaks come to the host in ``extract3d/fetch``."""
     x = _score_map(x, device)
     D, H, W = x.shape
-    mask = nms_mask_3d(x, float(scale * r), float(threshold))
-    scores, flat_idx = _sorted_peaks(x, mask)
+    with stage("extract3d/nms", device=x.device):
+        mask = nms_mask_3d(x, float(scale * r), float(threshold))
+    with stage("extract3d/fetch"):
+        scores, flat_idx = _sorted_peaks(x, mask)
     rem = flat_idx % (H * W)
     coords = np.stack([rem % W, rem // W, flat_idx // (H * W)], axis=1).astype(np.int32)
     return scores, coords
