@@ -138,9 +138,12 @@ Phases, in order; any failure exits non-zero before a result is printed:
 10. Denoiser training and ``denoise3d`` (``run_denoise_train``,
    ``run_denoise3d``).
 11. 3D picking (``run_extract3d``): a 3D resnet8 at units 32, its weights
-   drawn from seed 0, saved as .npz; a 192 x 384 x 384 tomogram of planted
-   blobs scored in 32 tiles of 166^3 (wall and device time against the
-   FLOP bound, peak memory), ``extract.pick_volume`` at r = 8 (the CLI's
+   drawn from seed 0, saved as .npz; one 166^3 window's dilated
+   convolutions timed direct and on the phase route, each (its kernels,
+   the split and merge copies, the two outputs' difference); a 192 x 384 x
+   384 tomogram of planted blobs scored in 32 tiles of 166^3 (wall and
+   device time against the FLOP bound, peak memory; it must run
+   convolutions on the phase route), ``extract.pick_volume`` at r = 8 (the CLI's
    and the benchmark's path; its picks equal the sphere-max NMS of the
    scored map, whose time its ``extract3d/nms`` span gives), then
    ``extract --dims 3 -r 8`` through the CLI (``z_coord`` column, picks
@@ -2441,11 +2444,101 @@ def run_extract_targets(workdir: str, files):
     return launches, {"r": 100, "shape": [SIZE // 8, SIZE // 8], **r100}
 
 
+def time_phase_convs(model=None, window: int = 166, reps: int = 5):
+    """One tile's dilated convolutions (the 3D resnet8 at units 32 on a
+    ``window``^3 window, batch 1, as ``extract3d`` scores it) each timed
+    both ways with CUDA events, the mean of ``reps`` calls: direct
+    (``F.conv3d`` at its dilation) and on the phase route
+    (``layers.phase_conv3d``), with the phase route's split and merge
+    copies alone, the rate each reaches of the f32 peak, the kernels that
+    take most of each route's device time (torch.profiler), the largest
+    difference of the two outputs relative to the output's largest value
+    and the route ``conv_nd`` takes. Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from topaz_tpu_torch.models import layers
+    from topaz_tpu_torch.models.factory import new_picker
+
+    if model is None:
+        model = new_picker("resnet8", units=32, bn=True, dims=3, seed=SEED, device="cuda")
+    calls, direct = [], layers.conv_nd
+
+    def record(x, w, b=None, stride=1, dilation=1):
+        if dilation > 1:
+            calls.append((x, w, b, dilation))
+        return direct(x, w, b, stride=stride, dilation=dilation)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    layers.conv_nd = record
+    try:
+        with torch.inference_mode():
+            model(torch.randn((1,) + (window,) * 3, device="cuda", generator=g), pad=False)
+    finally:
+        layers.conv_nd = direct
+
+    def top_kernels(fn):
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [(e.self_device_time_total, e.key) for e in prof.key_averages()]
+        rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+        total = sum(t for t, _ in rows) or 1
+        return [f"{name[:90]} {t / total:.2f}" for t, name in rows[:2]]
+
+    out_rows, total = [], {"direct": 0.0, "phase": 0.0, "copies": 0.0, "routed": 0.0}
+    with torch.inference_mode():
+        for i, (x, w, b, d) in enumerate(calls):
+            want = F.conv3d(x, w, b, dilation=d)
+            got = layers.phase_conv3d(x, w, b, d)
+            err = float((got - want).abs().max() / want.abs().max())
+            n, c = x.shape[:2]
+            q = [-(-s // d) for s in x.shape[2:]]
+            xs = x.new_zeros((n, d, d, d, c, *q))
+            ys = F.conv3d(xs.view(n * d ** 3, c, *q), w, b)
+            ys = ys.view(n, d, d, d, *ys.shape[1:])
+            y = torch.empty_like(want)
+            ms = {"direct": cuda_ms(lambda: F.conv3d(x, w, b, dilation=d), reps, warmup=1),
+                  "phase": cuda_ms(lambda: layers.phase_conv3d(x, w, b, d), reps, warmup=1),
+                  "split": cuda_ms(lambda: layers._phase_copy(x, xs, d, split=True), reps, warmup=1),
+                  "merge": cuda_ms(lambda: layers._phase_copy(y, ys, d, split=False), reps, warmup=1)}
+            flops = 2 * w[0].numel() * w.shape[0] * want[0, 0].numel() * n
+            kernels = {k: top_kernels(fn) for k, fn in (
+                ("direct", lambda: F.conv3d(x, w, b, dilation=d)),
+                ("phase", lambda: layers.phase_conv3d(x, w, b, d)))}
+            row = {"conv": i, "cin": c, "cout": w.shape[0], "k": w.shape[2], "d": d,
+                   "in": list(x.shape[2:]), "tflop": flops / 1e12, "ms": ms,
+                   "peak_share": {k: flops / (ms[k] * 1e-3) / F32_OPS_PER_S
+                                  for k in ("direct", "phase")},
+                   "kernels": kernels, "max_rel_diff": err,
+                   "route": "phase" if layers.phase_route(x, w, b, 1, d) else "direct"}
+            out_rows.append(row)
+            total["direct"] += ms["direct"]
+            total["phase"] += ms["phase"]
+            total["copies"] += ms["split"] + ms["merge"]
+            total["routed"] += ms[row["route"]]
+            print(f"# phase conv {i} ({row['route']} route): {c}->{w.shape[0]} k{w.shape[2]} d{d} "
+                  f"in {tuple(x.shape[2:])}: "
+                  f"direct {ms['direct']:.3f} ms ({row['peak_share']['direct']:.3f} of peak), "
+                  f"phase {ms['phase']:.3f} ms ({row['peak_share']['phase']:.3f}; split "
+                  f"{ms['split']:.3f}, merge {ms['merge']:.3f}), max rel diff {err:.2e}; "
+                  f"direct {kernels['direct']}; phase {kernels['phase']}")
+            del xs, ys, y, want, got
+    print(f"# dilated convs of one {window}^3 tile: all direct {total['direct']:.3f} ms, all on "
+          f"phases {total['phase']:.3f} ms ({total['copies']:.3f} of it split and merge copies), "
+          f"each on its route {total['routed']:.3f} ms")
+    return out_rows
+
+
 def run_extract3d(workdir: str):
     """Phase 12: a 3D resnet8 at units 32 (random weights from a seed) saved
     as .npz and run by ``extract --dims 3`` on a 192 x 384 x 384 tomogram
-    of planted blobs: dense scoring (32 tiles of 166^3) alone against its
-    FLOP bound, ``extract.pick_volume`` (the CLI's path; its sphere-max NMS
+    of planted blobs: one tile's dilated convolutions timed direct and on
+    the phase route (``time_phase_convs``), dense scoring (32 tiles of
+    166^3) alone against its FLOP bound, failing unless it ran convolutions
+    on the phase route (``layers.phase_convs``), ``extract.pick_volume`` (the CLI's path; its sphere-max NMS
     from its span) against NMS of the scored map, the CLI against
     ``pick_volume``'s picks; card against CPU on one
     tile's volume, ``--targets --only-validate`` included. Returns the
@@ -2456,6 +2549,7 @@ def run_extract3d(workdir: str):
     from topaz_tpu_torch import extract as ex
     from topaz_tpu_torch.cli.main import main as cli
     from topaz_tpu_torch.io import mrc
+    from topaz_tpu_torch.models import layers
     from topaz_tpu_torch.models.factory import new_picker, save_picker
     from topaz_tpu_torch.models.tiling import classify_patches_3d
     from topaz_tpu_torch.ops import nms
@@ -2465,7 +2559,9 @@ def run_extract3d(workdir: str):
     model = new_picker("resnet8", units=32, dims=3, seed=SEED, device="cuda")
     ckpt = os.path.join(workdir, "picker3d.npz")
     save_picker(ckpt, model)
+    time_phase_convs(model)
     reset_launches()
+    phase_convs = layers.phase_convs
 
     vol = mrc.read(tomo)[0]
     tile = 96
@@ -2491,6 +2587,12 @@ def run_extract3d(workdir: str):
           f"{bound_ms / device_ms:.3f} of it; peak memory {peak / 2**30:.3f} GiB")
     if tuple(score.shape) != vol.shape or not bool(torch.isfinite(score).all()):
         fail(f"extract3d: score map {tuple(score.shape)}, finite {bool(torch.isfinite(score).all())}")
+    phase_convs = layers.phase_convs - phase_convs
+    print(f"# extract3d dense scoring: {phase_convs} phase convolutions "
+          f"({phase_convs / (tiles + 1):.1f} a tile), direct dilated ones counted "
+          f"{layers.direct_dilated_convs} in this process")
+    if not phase_convs:
+        fail("extract3d: the card's 3D dense scoring ran no convolution on the phase route")
 
     # a threshold that keeps the top 1/1000 of the voxels active
     threshold = float(torch.topk(score.reshape(-1), score.numel() // 1000).values[-1])

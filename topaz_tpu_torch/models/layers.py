@@ -13,12 +13,22 @@ Each architecture is a static spec (a tuple of layer descriptors).
     topaz/model/features/resnet.py:31-44,87-99,153-176).
 Layout is NCHW with OIHW kernels in 2D, NCDHW with OIDHW kernels in 3D
 (tomograms); all convolutions are VALID.
+
+A 3D convolution dilated d > 1 at stride 1 with 64 output channels or more,
+on a float32 card tensor with no autograd graph to build, runs on the phase
+route (``phase_conv3d``): one undilated convolution over the input's d^3
+phase sub-volumes (a kernel deeper than 3 in depth slabs), the same
+products summed, where cuDNN takes its plain implicit GEMM at wide tiles
+rather than the 32x32 ones it gives dilated 3D convolutions. Anything else
+runs ``F.conv2d``/``F.conv3d`` as it is. ``phase_convs`` and
+``direct_dilated_convs`` count the dilated convolutions on each route.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
+import threading
 from dataclasses import dataclass
 from typing import Sequence, Tuple, Union
 
@@ -27,6 +37,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from topaz_tpu_torch.parallel.mesh import shared_sum
+
+# dilated convolutions on the phase route and on the direct route in this
+# process; callers may reset each to 0
+phase_convs = 0
+direct_dilated_convs = 0
+_lock = threading.Lock()  # the counters, from a mesh's threads too
 
 
 # ---------------------------------------------------------------------------
@@ -113,9 +129,101 @@ def total_stride(specs: Sequence[LayerSpec]) -> int:
 def conv_nd(x: torch.Tensor, w: torch.Tensor, b=None, stride: int = 1,
             dilation: int = 1) -> torch.Tensor:
     """VALID convolution (cross-correlation): 2D for an OIHW kernel on NCHW,
-    3D for an OIDHW kernel on NCDHW."""
+    3D for an OIDHW kernel on NCDHW; on the phase route where
+    ``phase_route`` says so."""
+    if dilation > 1:
+        phase = phase_route(x, w, b, stride, dilation)
+        global phase_convs, direct_dilated_convs
+        with _lock:
+            if phase:
+                phase_convs += 1
+            else:
+                direct_dilated_convs += 1
+        if phase:
+            return phase_conv3d(x, w, b, dilation)
     conv = F.conv3d if w.dim() == 5 else F.conv2d
     return conv(x, w, b, stride=stride, dilation=dilation)
+
+
+def phase_route(x: torch.Tensor, w: torch.Tensor, b, stride: int, dilation: int) -> bool:
+    """Whether a convolution runs on the phase route: a 5-D input, dilation
+    above 1 at stride 1 (the form dense scoring runs), 64 output channels
+    or more, input and kernel float32 on a card, and no autograd graph to
+    build (gradients off, or nothing that requires one). The 2D pickers'
+    dilated convolutions already take cuDNN's plain implicit GEMM; the CPU
+    and training keep the direct convolution. So do fewer output channels:
+    on an H100 cuDNN gives their phases its 64x32 tile, which gains less
+    than the split and merge copies cost (the 3D resnet8's three 32 -> 32
+    convolutions of a 166^3 tile: 20.9 ms direct, 22.4 ms on the route;
+    its 32 -> 64 and 64 -> 64 ones: 39.0 ms direct, 28.6 ms on the route)."""
+    if x.dim() != 5 or dilation <= 1 or stride != 1 or w.shape[0] < 64:
+        return False
+    if not (x.is_cuda and x.dtype == torch.float32 and w.dtype == torch.float32):
+        return False
+    tensors = (x, w) if b is None else (x, w, b)
+    return not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+
+
+def _phase_runs(n: int, d: int):
+    """An axis of length ``n`` as rows of ``d`` phases: its whole rows, then
+    the part row of ``n % d``; for each, the slice of the axis, the rows and
+    the phases."""
+    whole = n // d
+    runs = [(slice(0, whole * d), slice(0, whole), slice(0, d))] if whole else []
+    if n % d:
+        runs.append((slice(whole * d, n), slice(whole, whole + 1), slice(0, n % d)))
+    return runs
+
+
+def _phase_copy(flat: torch.Tensor, phases: torch.Tensor, d: int, split: bool) -> None:
+    """Copy between ``flat`` (N, C, D, H, W) and ``phases`` (N, d, d, d, C,
+    Dq, Hq, Wq), phase (a, b, c) of row (i, j, k) holding voxel (d i + a,
+    d j + b, d k + c): into ``phases`` when ``split``, else into ``flat``.
+    One strided copy a run of whole or part rows on each axis."""
+    rows = phases.permute(0, 4, 5, 1, 6, 2, 7, 3)  # (N, C, Dq, d, Hq, d, Wq, d)
+    for runs in itertools.product(*(_phase_runs(n, d) for n in flat.shape[2:])):
+        f = flat[(Ellipsis,) + tuple(r[0] for r in runs)]
+        for axis in (4, 3, 2):
+            run = runs[axis - 2]
+            f = f.unflatten(axis, (run[1].stop - run[1].start, run[2].stop))
+        p = rows[(slice(None), slice(None)) + tuple(s for r in runs for s in r[1:])]
+        (p if split else f).copy_(f if split else p)
+
+
+def phase_conv3d(x: torch.Tensor, w: torch.Tensor, b, dilation: int) -> torch.Tensor:
+    """``F.conv3d(x, w, b, dilation=dilation)`` (VALID, stride 1) as one
+    undilated convolution over the d^3 phase sub-volumes of ``x``: with o =
+    d q + p, x[o + d k] = x_p[q + k], so phase p of the output is phase p of
+    the input convolved with ``w``. The input is copied once into
+    phase-major order (N d^3, C, ceil(D/d), ceil(H/d), ceil(W/d)), the far
+    end of an axis that is no multiple of d zero-filled; the output's
+    phases are interleaved back and cropped to D - d (k - 1) (and so on)
+    in one copy. Each output voxel is the same sum of the same products.
+
+    A kernel deeper than 3 runs as the sum of its (1, k, k) depth slabs:
+    cuDNN gives a 3D kernel of 5 its indexed implicit GEMM at 32x32 tiles,
+    dilated or not, and a slab its 256x64 one (on an H100, the 3D resnet8's
+    64 -> 128 5^3 convolution of a 166^3 tile: 92.7 ms whole, 45.9 ms in
+    slabs on the phases)."""
+    d = dilation
+    n, c = x.shape[:2]
+    rows = [-(-s // d) for s in x.shape[2:]]
+    out = [s - d * (k - 1) for s, k in zip(x.shape[2:], w.shape[2:])]
+    whole = all(s % d == 0 for s in x.shape[2:])
+    xs = (x.new_empty if whole else x.new_zeros)((n, d, d, d, c, *rows))
+    _phase_copy(x, xs, d, split=True)
+    xs = xs.view(n * d ** 3, c, *rows)
+    k = w.shape[2]
+    if k <= 3:
+        ys = F.conv3d(xs, w, b)
+    else:
+        depth = rows[0] - k + 1
+        ys = F.conv3d(xs[:, :, :depth], w[:, :, :1], b)
+        for a in range(1, k):
+            ys += F.conv3d(xs[:, :, a:a + depth], w[:, :, a:a + 1])
+    y = x.new_empty((n, w.shape[0], *out))
+    _phase_copy(y, ys.view(n, d, d, d, *ys.shape[1:]), d, split=False)
+    return y
 
 
 def pool_nd(x: torch.Tensor, kernel: int, stride: int = 1, dilation: int = 1,
