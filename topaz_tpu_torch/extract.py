@@ -23,6 +23,16 @@ tile``, ``score``, ``nms``, ``fetch``) and counters (this module's
 ``volumes_picked`` and ``output_voxels``, models/tiling.py's
 ``tiles_scored`` and ``network_voxels``).
 
+The route that takes one micrograph at a time (``batch_size`` 1, the
+CLI's default) records a stage span for each of its steps, once a
+micrograph: ``extract/read`` (the file loaded and copied),
+``extract/upload`` (the copy to the device), ``extract/score`` (the
+whole-image forward), ``extract/nms`` and ``extract/fetch`` (ops/nms.py's
+rounds and the peaks' way to the host, for every caller of
+``non_maximum_suppression``) and ``extract/write`` (one micrograph's
+lines); this module's counters ``micrographs_picked`` and
+``output_pixels`` count its 2D micrographs and their score maps' pixels.
+
 Output is the single table (image_name, x_coord, y_coord[, z_coord], score)
 on stdout or in one file, or one file a micrograph in the coord, star, box,
 json or csv format.
@@ -45,11 +55,16 @@ from topaz_tpu_torch.models.picker import Picker
 from topaz_tpu_torch.ops.metrics import average_precision, match_coordinates
 from topaz_tpu_torch.ops.nms import non_maximum_suppression, non_maximum_suppression_3d
 from topaz_tpu_torch.utils.printing import report
+from topaz_tpu_torch.utils.profiling import stage
 
 # pick_volume's work in this process: tomograms picked and voxels of their
 # score maps; callers may reset each to 0
 volumes_picked = 0
 output_voxels = 0
+# the same of the micrographs that extract_particles suppresses one at a
+# time (2D, not the batched pipeline): micrographs and their maps' pixels
+micrographs_picked = 0
+output_pixels = 0
 
 
 def stream_inputs(f: TextIO) -> Iterator[str]:
@@ -76,8 +91,9 @@ def _images(model: Optional[str], paths: Iterable[str],
 
         picker = load_picker(model, device=device)
     for path in paths:
-        # a copy: arrays read from files are read-only
-        image = np.array(load_image(path), dtype=np.float32)
+        with stage("extract/read"):
+            # a copy: arrays read from files are read-only
+            image = np.array(load_image(path), dtype=np.float32)
         if picker is not None and image.ndim != picker.spec.dims:
             raise ValueError(f"{path}: a {image.ndim}D image for a {picker.spec.dims}D "
                              f"picker (--dims {image.ndim} needs a {image.ndim}D model)")
@@ -87,7 +103,8 @@ def _images(model: Optional[str], paths: Iterable[str],
 def _score(picker: Optional[Picker], image: np.ndarray, patch_size: int,
            device) -> torch.Tensor:
     if picker is None:
-        return torch.from_numpy(image).to(device)
+        with stage("extract/upload", device=device):
+            return torch.from_numpy(image).to(device)
     if image.ndim == 3:
         from topaz_tpu_torch.models.tiling import classify_patches_3d
 
@@ -96,8 +113,10 @@ def _score(picker: Optional[Picker], image: np.ndarray, patch_size: int,
         from topaz_tpu_torch.models.tiling import predict_in_patches
 
         return predict_in_patches(picker, image, patch_size)
-    with torch.inference_mode():
-        return picker(torch.from_numpy(image).to(device)[None])[0]
+    with stage("extract/upload", device=device):
+        x = torch.from_numpy(image).to(device)
+    with stage("extract/score", device=device), torch.inference_mode():
+        return picker(x[None])[0]
 
 
 def score_images(model: Optional[str], paths: Iterable[str], patch_size: int = 0,
@@ -225,22 +244,23 @@ def _write_picks(picks, output: Optional[str], per_micrograph: bool, suffix: str
     f, output_dir = _open_outputs(output, per_micrograph, dims)
     try:
         for path, s, coords in picks:
-            name, ext = os.path.splitext(os.path.basename(path))
-            if verbose:
-                report(f"Extracted {len(s)} particles from {name}")
-            if scale != 1:
-                coords = np.round(coords * scale).astype(int)
-            if per_micrograph:
-                table = Coordinates(np.array([name] * len(s), dtype=object), coords[:, 0],
-                                    coords[:, 1], z_coord=coords[:, 2] if dims == 3 else None,
-                                    score=s)
-                out_path = os.path.join(output_dir, name + suffix + "." + out_format)
-                with open(out_path, "w") as pf:
-                    write_table(pf, table, format=out_format, image_ext=ext)
-                continue
-            for i in range(len(s)):
-                z_coord = f"\t{coords[i, 2]}" if dims == 3 else ""
-                print(f"{name}\t{coords[i, 0]}\t{coords[i, 1]}{z_coord}\t{s[i]}", file=f)
+            with stage("extract/write"):
+                name, ext = os.path.splitext(os.path.basename(path))
+                if verbose:
+                    report(f"Extracted {len(s)} particles from {name}")
+                if scale != 1:
+                    coords = np.round(coords * scale).astype(int)
+                if per_micrograph:
+                    table = Coordinates(np.array([name] * len(s), dtype=object), coords[:, 0],
+                                        coords[:, 1], z_coord=coords[:, 2] if dims == 3 else None,
+                                        score=s)
+                    out_path = os.path.join(output_dir, name + suffix + "." + out_format)
+                    with open(out_path, "w") as pf:
+                        write_table(pf, table, format=out_format, image_ext=ext)
+                    continue
+                for i in range(len(s)):
+                    z_coord = f"\t{coords[i, 2]}" if dims == 3 else ""
+                    print(f"{name}\t{coords[i, 0]}\t{coords[i, 1]}{z_coord}\t{s[i]}", file=f)
     finally:
         if f is not None and f is not sys.stdout:
             f.close()
@@ -344,9 +364,13 @@ def extract_particles(
         return
 
     def nms(score):
-        if dims == 2:
-            return non_maximum_suppression(score, radius, threshold=threshold, device=device)
-        return non_maximum_suppression_3d(score, radius, threshold=threshold, device=device)
+        global micrographs_picked, output_pixels
+        if dims == 3:
+            return non_maximum_suppression_3d(score, radius, threshold=threshold, device=device)
+        picks = non_maximum_suppression(score, radius, threshold=threshold, device=device)
+        micrographs_picked += 1
+        output_pixels += score.numel()
+        return picks
 
     def pick(path, picker, image):
         # a tomogram's picks need no kept score map

@@ -13,9 +13,12 @@ filter is the CUDA kernel of ops/disk_max.py; ``disk_max`` here is its
 plain version, used for tensors on the CPU and as the kernel's reference.
 The 3D ``sphere_max`` was XLA ops on the TPU, not a Pallas kernel, and is
 plain PyTorch on every device. The accepted peaks are gathered and sorted
-on the score map's device; only they come back to the host. The 3D entry
-point records its rounds in an ``extract3d/nms`` stage span and the peaks'
-way to the host in ``extract3d/fetch``; the 2D ones record none.
+on the score map's device; only they come back to the host.
+``non_maximum_suppression`` records its rounds in an ``extract/nms`` stage
+span and the peaks' way to the host in ``extract/fetch``,
+``non_maximum_suppression_3d`` in ``extract3d/nms`` and
+``extract3d/fetch``; the mask and table entry points (the batched
+pipeline's among them) and the exact oracle record none.
 ``exact_non_maximum_suppression`` takes the peaks one at a time in the
 literal greedy order, the rounds' oracle.
 """
@@ -198,11 +201,14 @@ def non_maximum_suppression(
     """2D NMS with the reference's interface: returns (scores, coords[x, y])
     sorted by descending score (topaz/algorithms.py:25-63). ``x`` is an
     (H, W) array or tensor; the rounds run on ``device``, and a map already
-    there is not copied."""
+    there is not copied. The rounds run in an ``extract/nms`` stage span,
+    the sorted peaks come to the host in ``extract/fetch``."""
     x = _score_map(x, device)
     W = x.shape[1]
-    mask = nms_mask_2d(x, int(r), float(threshold))
-    scores, flat_idx = _sorted_peaks(x, mask)
+    with stage("extract/nms", device=x.device):
+        mask = nms_mask_2d(x, int(r), float(threshold))
+    with stage("extract/fetch"):
+        scores, flat_idx = _sorted_peaks(x, mask)
     coords = np.stack([flat_idx % W, flat_idx // W], axis=1).astype(np.int32)
     return scores, coords
 
